@@ -10,15 +10,22 @@ no result):
            process per source, all started together) and load them;
   kernels  each kernel at one card's deployment scale -- 4,000,000 rows x
            d = 128 f32 (favor-anns' 64M rows over its 16 model shards) with
-           the paper schema's attributes, 1024 queries -- held against its
+           the paper schema's attributes and favor-anns' PQ codes (M = 32
+           subspaces of K = 256 centroids), 1024 queries -- held against its
            plain PyTorch version and timed with CUDA events beside its bound;
   serve    FavorIndex.build on a synthetic paper dataset (HNSW M=16, host
-           build), then FavorIndex.query for a batch of 1024 filtered
-           queries over the six paper scenarios and a < 1 % filter, so both
-           routes run; launch counters show the batch went through both
-           kernels; results are checked against exact filtered ground truth
-           (plain brute version on the card) and against the port's own CPU
-           path on a query subset.
+           build) with favor-anns' QuantSpec (PQ m=32, nbits=8, rerank=8;
+           the codebook trained on the card), then FavorIndex.query for
+           batches of 1024 filtered queries over the six paper scenarios and
+           a < 1 % filter, so both routes run, under three option sets: f32
+           (the route of filtered_topk and gather_distance), favor-anns'
+           own ``use_pq=True`` (pq_adc_topr + the exact re-rank on the
+           brute route) and ``use_pq`` + ``graph_quant="pq"``
+           (pq_adc_gather on the graph route).  Each pass resets the launch
+           counters before it and reads them after it; results are checked
+           against exact filtered ground truth (plain brute version on the
+           card), against the port's own CPU path on a query subset, and an
+           SQ index is checked on both compressed routes.
 
 Then a ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and as the last line
@@ -45,6 +52,14 @@ RATES = {"SXM": {"hbm_bytes_per_s": 3.35e12, "f32_flops": 67e12},
 # f32 bits of the squared form; ids must agree wherever distances are apart
 RTOL = ATOL = 1e-5
 K, EF, M0 = 10, 128, 32
+PQ_M, PQ_BITS, RERANK = 32, 8, 8   # favor-anns' QuantSpec
+# recall bars of the compressed routes, two points as in the JAX package's
+# own (tests/test_quant.py, tests/test_scoring.py): the compressed brute
+# route and the SQ graph route against the f32 route; the PQ graph route
+# against what its scorer can rank at all -- the exhaustive compressed scan
+# with the same exact re-rank depth (PQ m=32 x 8 bits ranks this corpus'
+# near neighbours too coarsely for the f32 bar)
+RECALL_SLACK = 0.02
 DB_ROWS = 4_000_000    # kernels phase: one card's share of favor-anns
 SERVE_N = 16384        # serve phase: rows of the host-built HNSW index
 BATCH = 1024           # queries per batch (favor-anns' serve batch)
@@ -262,134 +277,375 @@ def phase_kernels(dev, rates):
         "library_ms": None,
         "shape": {"B": b, "M0": M0, "N": n, "d": d, "valid_ids": n_valid},
     }
+    kernels.update(pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec,
+                              ids_t, n, flush))
     emit({"phase": "kernels", "setup_s": setup_s, "rates": rates_used,
-          "filtered_topk": {k: v for k, v in kernels["filtered_topk"].items()
-                            if k != "name"} | {"vs_plain": out},
-          "gather_distance": {k: v for k, v in
-                              kernels["gather_distance"].items()
-                              if k != "name"},
+          **{name: {k: v for k, v in row.items() if k != "name"}
+             for name, row in kernels.items()},
+          "filtered_topk_vs_plain": out,
           "launches_outside_main_path": dict(Kn.launch_counts)})
     del pv, pn, pi, pf, scratch
     torch.cuda.empty_cache()
     return kernels
 
 
-def phase_serve(dev):
+def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
+               flush):
+    """pq_adc_topr (f32 LUTs, R = rerank * k) and pq_adc_gather (bf16
+    LUTs, filter mode as the traversal calls it) over favor-anns' PQ codes
+    of the kernel phase's rows: codes and centroids drawn from the seed,
+    LUTs from the port's build_luts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.pq_adc import ops as pq
+    from repro_torch.parity import topk_mismatch
+    from repro_torch.quant.adc import build_luts
+
+    b, ksub, r = qs.shape[0], 1 << PQ_BITS, RERANK * K
+    n_pad, mi, mf = pn.shape[0], pi.shape[1], pf.shape[1]
+    codes = torch.as_tensor(rng.integers(0, ksub, size=(n_pad, PQ_M),
+                                         dtype=np.uint8), device=dev)
+    cents = torch.as_tensor(rng.standard_normal(
+        (PQ_M, ksub, qs.shape[1] // PQ_M), dtype=np.float32), device=dev)
+    luts = build_luts(cents, qs)
+    prog_bytes = sum(v.numel() * v.element_size() for v in progs.values())
+    out = {}
+
+    # -- pq_adc_topr: the whole batch against its plain version --------------
+    kid, kd = pq.pq_adc_topr(codes, pn, pi, pf, luts, progs, r=r)
+    t0 = time.perf_counter()
+    pid, pd = pq.pq_adc_topr_plain(codes, pn, pi, pf, luts, progs, r=r)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rows = n_pad
+    if plain_s > 60:                 # compare on the first 1M rows instead
+        rows = 1_000_000
+        kid, kd = pq.pq_adc_topr(codes[:rows], pn[:rows], pi[:rows],
+                                 pf[:rows], luts, progs, r=r)
+        pid, pd = pq.pq_adc_topr_plain(codes[:rows], pn[:rows], pi[:rows],
+                                       pf[:rows], luts, progs, r=r)
+    m = topk_mismatch(pid.cpu().numpy(), pd.cpu().numpy(), kid.cpu().numpy(),
+                      kd.cpu().numpy(), RTOL, ATOL)
+    check(m["dist_mismatch"] == 0 and m["id_mismatch"] == 0,
+          f"pq_adc_topr vs plain: {m}")
+    check(int(kid.max()) < n, "pq_adc_topr returned a pad row")
+    ms = cuda_ms(lambda: pq.pq_adc_topr(codes, pn, pi, pf, luts, progs, r=r),
+                 repeats=REPEATS)
+    plain_ms = cuda_ms(lambda: pq.pq_adc_topr_plain(codes, pn, pi, pf, luts,
+                                                    progs, r=r),
+                       repeats=3, warmup=1)
+    topr_bytes = (n_pad * (PQ_M + 4 * (1 + mi + mf)) + luts.numel() * 4
+                  + prog_bytes + b * r * 8)
+    topr_ops = b * n * PQ_M            # one add per (query, row, subspace)
+    out["pq_adc_topr"] = {
+        "name": "pq_adc_topr", "route": "cuda",
+        "source": "src/repro_torch/csrc/pq_adc.cu",
+        "replaces": "src/repro/kernels/pq_adc/kernel.py:172",
+        "max_abs_err": m["max_abs_diff"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(topr_bytes / rates["hbm_bytes_per_s"],
+                              topr_ops / rates["f32_flops"]),
+        "bound_by": ("operations" if topr_ops / rates["f32_flops"]
+                     >= topr_bytes / rates["hbm_bytes_per_s"] else "bytes"),
+        "library_ms": None,
+        "compared_rows": rows, "identical_rows": m["identical_rows"],
+        "shape": {"B": b, "N": n, "M": PQ_M, "K": ksub, "R": r,
+                  "lut": "f32"},
+    }
+
+    # -- pq_adc_gather: B x M0 ids (about 10 % -1), bf16 LUTs, filter mode ---
+    lb = luts.to(torch.bfloat16)
+
+    def gather():
+        return pq.pq_adc_gather(codes, lb, ids_t, ints=pi, floats=pf,
+                                programs=progs, dvec=dvec)
+
+    def gather_plain():
+        return pq.pq_adc_gather_plain(codes, lb, ids_t, ints=pi, floats=pf,
+                                      programs=progs, dvec=dvec)
+
+    kd, ktd = gather()
+    pd, ptd = gather_plain()
+    fin = torch.isfinite(pd)
+    check(bool(torch.equal(fin, torch.isfinite(kd))), "pq_adc_gather -1 ids")
+    diff = (kd[fin] - pd[fin]).abs()
+    g_err = float(diff.max()) if diff.numel() else 0.0
+    check(bool((diff <= ATOL + RTOL * pd[fin].abs()).all()),
+          f"pq_adc_gather vs plain: max abs diff {g_err}")
+    check(bool(torch.equal(ktd, ptd)), "pq_adc_gather TD bits vs plain")
+    call_ms = cuda_ms(gather, repeats=2 * REPEATS, flush=flush)
+    g_ms = graph_ms(gather, repeats=2 * REPEATS, flush=flush)
+    g_plain_ms = graph_ms(gather_plain, repeats=10, flush=flush)
+    n_valid = int((ids_t >= 0).sum())
+    g_bytes = (ids_t.numel() * 4 + n_valid * (PQ_M + 2 * PQ_M + 4 * (mi + mf))
+               + prog_bytes + b * 4 + ids_t.numel() * 8)
+    g_ops = n_valid * PQ_M
+    out["pq_adc_gather"] = {
+        "name": "pq_adc_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/pq_adc.cu",
+        "replaces": "src/repro/kernels/pq_adc/kernel.py:127",
+        "max_abs_err": g_err, "ms": g_ms, "call_ms": call_ms,
+        "plain_ms": g_plain_ms,
+        "bound_ms": 1e3 * max(g_bytes / rates["hbm_bytes_per_s"],
+                              g_ops / rates["f32_flops"]),
+        "bound_by": ("operations" if g_ops / rates["f32_flops"]
+                     >= g_bytes / rates["hbm_bytes_per_s"] else "bytes"),
+        "library_ms": None,
+        "shape": {"B": b, "M0": ids_t.shape[1], "N": n, "M": PQ_M,
+                  "K": ksub, "valid_ids": n_valid, "lut": "bf16"},
+    }
+    return out
+
+
+def serve_pass(fi, opts, qs, flts, names, truth, label: str):
+    """Drive ``FavorIndex.query`` under ``opts``: one counted batch (launch
+    counters reset just before it, read just after it), timed repeats, and
+    one untimed batch under an operator counter.  Returns the pass's line
+    and the counted batch's result."""
     import numpy as np
     import torch
 
     from repro_torch import kernels as Kn
-    from repro_torch.core import FavorIndex, HnswParams, SearchOptions
-    from repro_torch.core import filters as F
-    from repro_torch.core import refimpl
-    from repro_torch.data import synthetic
-    from repro_torch.kernels.filtered_topk import ops as ft
-    from repro_torch.parity import topk_mismatch
 
-    n, d, b = SERVE_N, 128, BATCH
-    vecs, attrs, schema = synthetic.make_paper_dataset(n, d, seed=SEED)
-    fi = FavorIndex.build(vecs, attrs, HnswParams(M=16, efc=100,
-                                                  seed=SEED))
-    check(fi.device.type == "cuda", "FavorIndex.build defaults to the card")
-    qs = synthetic.make_queries(b, d, dataset_seed=SEED, seed=100)
-    flts, names = mixed_filters(F, schema, b)
-    opts = SearchOptions(k=K, ef=EF)
-
+    b = len(qs)
     fi.query(qs[:64], flts[:64], opts)          # warm-up (not counted)
     torch.cuda.synchronize()
     Kn.reset_launch_counts()
     t0 = time.perf_counter()
     res = fi.query(qs, flts, opts)
-    first_s = time.perf_counter() - t0
+    walls = [time.perf_counter() - t0]
     launches = dict(Kn.launch_counts)
-    check(all(launches[k] > 0 for k in Kn.SOURCES),
-          f"both kernels launched during query: {launches}")
-    walls = [first_s]
     for _ in range(SERVE_REPEATS - 1):
         t0 = time.perf_counter()
         again = fi.query(qs, flts, opts)
         walls.append(time.perf_counter() - t0)
-        check(bool((again.ids == res.ids).all()), "query is deterministic")
-
+        check(bool((again.ids == res.ids).all()),
+              f"{label}: query is deterministic")
     # host work per graph wave, counted on one untimed batch
     torch_ops = count_torch_ops(lambda: fi.query(qs, flts, opts))
+
+    n = fi.index.n
+    check(res.ids.shape == (b, K) and res.dists.shape == (b, K),
+          f"{label}: result shapes")
+    check(bool(np.isfinite(res.dists[res.ids >= 0]).all()),
+          f"{label}: finite distances for every returned id")
+    check(bool(((res.ids >= -1) & (res.ids < n)).all()),
+          f"{label}: ids in range")
+    gt_i, masks = truth
+    for i in range(b):
+        got = res.ids[i][res.ids[i] >= 0]
+        check(bool(masks[names[i]][got].all()),
+              f"{label}: query {i} returned a non-target row")
+    rec = np.array([refimpl_recall(res.ids[i], gt_i[i]) for i in range(b)])
+    brute = res.routed_brute
+    check(brute.any() and (~brute).any(), f"{label}: both routes ran")
+    names_a = np.asarray(names)
+    per = {}
+    for nm in dict.fromkeys(names):
+        rows = names_a == nm
+        br = brute[rows]
+        per[nm] = {"queries": int(rows.sum()),
+                   "p_true": float(masks[nm].mean()),
+                   "p_hat": float(res.p_hat[rows].mean()),
+                   "brute": int(br.sum()), "graph": int((~br).sum()),
+                   "recall_at_10": float(rec[rows].mean()),
+                   "recall_brute": (float(rec[rows & brute].mean())
+                                    if br.any() else None),
+                   "recall_graph": (float(rec[rows & ~brute].mean())
+                                    if (~br).any() else None)}
+    walls_ms = sorted(1e3 * w for w in walls)
+    waves = int(res.waves[~brute].max())
+    line = {
+        "phase": "serve", "pass": label,
+        "options": {k: v for k, v in vars(opts).items() if v is not None},
+        "brute": int(brute.sum()), "graph": int((~brute).sum()),
+        "launches": launches, "batch_ms": walls_ms,
+        "p50_ms": float(np.percentile(walls_ms, 50)),
+        "p99_ms": float(np.percentile(walls_ms, 99)),
+        "qps": b / statistics.median(walls),
+        "recall_at_10": {"brute": float(rec[brute].mean()),
+                         "graph": float(rec[~brute].mean())},
+        "per_scenario": per, "waves": waves,
+        "torch_ops_per_wave": torch_ops / waves,
+        "mean_hops": float(res.hops[~brute].mean()),
+    }
+    return line, res, rec
+
+
+def cpu_check(fi, opts, qs, flts, res, label: str) -> dict:
+    """The port's CPU path on a query subset, on the same graph, codebook
+    and codes: identical p_hat and routes; brute rows at the kernel bar
+    (under ``use_pq``: rows with a near-tie at the ADC candidate boundary R
+    excluded and counted); graph rows >= 90 % identical."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import FavorIndex
+    from repro_torch.kernels.pq_adc import ops as pq
+    from repro_torch.parity import topk_mismatch
+    from repro_torch.quant.adc import build_luts
+
+    brute = res.routed_brute
+    cpu = FavorIndex(fi.index, fi.attrs, fi.spec, codebook=fi.codebook,
+                     codes=(None if fi._codes is None else
+                            fi._codes[:fi.index.n].cpu().numpy()),
+                     device="cpu")
+    sub = np.r_[np.nonzero(brute)[0][:16], np.nonzero(~brute)[0][:48]]
+    sflts = [flts[i] for i in sub]
+    rc = cpu.query(qs[sub], sflts, opts)
+    check(bool((rc.p_hat == res.p_hat[sub]).all()), f"{label}: p_hat card == cpu")
+    check(bool((rc.routed_brute == brute[sub]).all()),
+          f"{label}: routes card == cpu")
+    bs = rc.routed_brute
+    keep = np.ones(int(bs.sum()), bool)
+    if opts.use_pq:
+        r = max(K, cpu.rerank * K)
+        _, pn, pi, pf = cpu._pf
+        luts = build_luts(cpu._cb_dev[0], torch.as_tensor(qs[sub][bs]))
+        _, adc = pq.pq_adc_topr(cpu._codes, pn, pi, pf, luts,
+                                cpu.compile_filters([sflts[i] for i in
+                                                     np.nonzero(bs)[0]]),
+                                r=r + 1)
+        adc = adc.numpy().astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            near = ~(adc[:, r] - adc[:, r - 1] > RTOL * adc[:, r - 1])
+        keep = ~(near & np.isfinite(adc[:, r]))
+    m = topk_mismatch(rc.ids[bs][keep], rc.dists[bs][keep],
+                      res.ids[sub][bs][keep], res.dists[sub][bs][keep],
+                      RTOL, ATOL)
+    check(m["dist_mismatch"] == 0 and m["id_mismatch"] == 0,
+          f"{label}: brute route card vs cpu: {m}")
+    same_graph = float((rc.ids[~bs] == res.ids[sub][~bs]).all(axis=1).mean())
+    check(same_graph >= 0.9,
+          f"{label}: graph rows identical card vs cpu: {same_graph}")
+    return {"queries": int(len(sub)), "graph_identical_rows": same_graph,
+            "brute_rows_near_tie_excluded": int((~keep).sum()),
+            "brute_identical_rows": m["identical_rows"],
+            "brute_max_abs_diff": m["max_abs_diff"]}
+
+
+def phase_serve(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (BuildSpec, FavorIndex, HnswParams,
+                                  QuantSpec, SearchOptions)
+    from repro_torch.core import filters as F
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.filtered_topk import ops as ft
+
+    n, d, b = SERVE_N, 128, BATCH
+    vecs, attrs, schema = synthetic.make_paper_dataset(n, d, seed=SEED)
+    spec = BuildSpec(hnsw=HnswParams(M=16, efc=100, seed=SEED),
+                     quant=QuantSpec(kind="pq", m=PQ_M, nbits=PQ_BITS,
+                                     rerank=RERANK))
+    t0 = time.perf_counter()
+    fi = FavorIndex.build(vecs, attrs, spec=spec)
+    total_build_s = time.perf_counter() - t0
+    check(fi.device.type == "cuda", "FavorIndex.build defaults to the card")
+    check(fi._codes.device.type == "cuda" and fi.quantize == "pq",
+          "codes on the card")
+    qs = synthetic.make_queries(b, d, dataset_seed=SEED, seed=100)
+    flts, names = mixed_filters(F, schema, b)
 
     # -- exact filtered ground truth: the plain brute version on the card ---
     progs = fi.compile_filters(flts)
     pv, pn, pi, pf = fi._pf
-    gt_i, gt_d = ft.filtered_topk_plain(pv, pn, pi, pf,
-                                        torch.as_tensor(qs, device=dev),
-                                        progs, k=K)
-    gt_i = gt_i.cpu().numpy()
-    check(res.ids.shape == (b, K) and res.dists.shape == (b, K),
-          "result shapes")
-    check(bool(np.isfinite(res.dists[res.ids >= 0]).all()),
-          "finite distances for every returned id")
-    check(bool(((res.ids >= -1) & (res.ids < n)).all()), "ids in range")
+    gt_i, _ = ft.filtered_topk_plain(pv, pn, pi, pf,
+                                     torch.as_tensor(qs, device=dev), progs,
+                                     k=K)
     masks = {nm: F.eval_program(F.compile_filter(f, schema), attrs.ints,
                                 attrs.floats).numpy()
              for nm, f in zip(names, flts)}
-    for i in range(b):
-        got = res.ids[i][res.ids[i] >= 0]
-        check(bool(masks[names[i]][got].all()),
-              f"query {i} returned a non-target row")
-    per = {}
-    names_a = np.asarray(names)
-    for nm in dict.fromkeys(names):
-        rows = np.nonzero(names_a == nm)[0]
-        rec = [refimpl.recall_at_k(res.ids[i], gt_i[i][gt_i[i] >= 0], K)
-               for i in rows]
-        br = res.routed_brute[rows]
-        per[nm] = {"queries": int(len(rows)),
-                   "p_true": float(masks[nm].mean()),
-                   "p_hat": float(res.p_hat[rows].mean()),
-                   "brute": int(br.sum()), "graph": int((~br).sum()),
-                   "recall_at_10": float(np.mean(rec))}
-    brute = res.routed_brute
-    rec_all = np.array([refimpl.recall_at_k(res.ids[i],
-                                            gt_i[i][gt_i[i] >= 0], K)
-                        for i in range(b)])
-    check(brute.any() and (~brute).any(), "both routes ran")
-    check(bool((rec_all[brute] == 1.0).all()),
-          f"brute-route recall is 1.0 (got {rec_all[brute].mean()})")
+    truth = (gt_i.cpu().numpy(), masks)
 
-    # -- the port's CPU path on a subset: same routes, same answers ---------
-    cpu = FavorIndex(fi.index, fi.attrs, fi.spec, device="cpu")
-    sub = np.r_[np.nonzero(brute)[0][:16], np.nonzero(~brute)[0][:48]]
-    rc = cpu.query(qs[sub], [flts[i] for i in sub], opts)
-    check(bool((rc.p_hat == res.p_hat[sub]).all()), "p_hat card == cpu")
-    check(bool((rc.routed_brute == brute[sub]).all()), "routes card == cpu")
-    bs = rc.routed_brute
-    m = topk_mismatch(rc.ids[bs], rc.dists[bs], res.ids[sub][bs],
-                      res.dists[sub][bs], RTOL, ATOL)
-    check(m["dist_mismatch"] == 0 and m["id_mismatch"] == 0,
-          f"brute route card vs cpu: {m}")
-    same_graph = float((rc.ids[~bs] == res.ids[sub][~bs]).all(axis=1).mean())
-    check(same_graph >= 0.9, f"graph rows identical card vs cpu: {same_graph}")
-
-    walls_ms = sorted(1e3 * w for w in walls)
-    out = {
-        "phase": "serve", "n": n, "d": d, "hnsw": {"M": 16, "M0": 32,
-                                                   "efc": 100},
-        "build_s": fi.build_seconds, "batch": b, "k": K, "ef": EF,
-        "brute": int(brute.sum()), "graph": int((~brute).sum()),
-        "launches": launches,
-        "batch_ms": walls_ms,
-        "p50_ms": float(np.percentile(walls_ms, 50)),
-        "p99_ms": float(np.percentile(walls_ms, 99)),
-        "qps": b / statistics.median(walls),
-        "recall_at_10": {"brute": float(rec_all[brute].mean()),
-                         "graph": float(rec_all[~brute].mean())},
-        "per_scenario": per,
-        "waves": int(res.waves[~brute].max()),
-        "torch_ops_per_wave": torch_ops / int(res.waves[~brute].max()),
-        "mean_hops": float(res.hops[~brute].mean()),
-        "cpu_check": {"queries": int(len(sub)),
-                      "graph_identical_rows": same_graph,
-                      "brute_max_abs_diff": m["max_abs_diff"]},
+    passes = {
+        "f32": SearchOptions(k=K, ef=EF),
+        "use_pq": SearchOptions(k=K, ef=EF, use_pq=True),
+        "use_pq+graph_pq": SearchOptions(k=K, ef=EF, use_pq=True,
+                                         graph_quant="pq"),
     }
-    emit(out)
-    return launches
+    need = {"f32": ("filtered_topk", "gather_distance"),
+            "use_pq": ("pq_adc_topr", "gather_distance"),
+            "use_pq+graph_pq": ("pq_adc_topr", "pq_adc_gather")}
+    lines, recs = {}, {}
+    for label, opts in passes.items():
+        line, res, rec = serve_pass(fi, opts, qs, flts, names, truth, label)
+        for kname in need[label]:
+            check(line["launches"][kname] > 0,
+                  f"{label}: {kname} launched on the main path: "
+                  f"{line['launches']}")
+        line["cpu_check"] = cpu_check(fi, opts, qs, flts, res, label)
+        lines[label], recs[label] = line, (rec, res.routed_brute)
+        if label != "use_pq+graph_pq":
+            emit(line)
+
+    # recall bars: f32 brute is exact; the compressed brute route within two
+    # points of it; the graph route under use_pq is the f32 one
+    rec32, br32 = recs["f32"]
+    check(bool((rec32[br32] == 1.0).all()),
+          f"f32 brute-route recall is 1.0 (got {rec32[br32].mean()})")
+    for label in ("use_pq", "use_pq+graph_pq"):
+        rec, br = recs[label]
+        check(rec[br].mean() >= 1.0 - RECALL_SLACK,
+              f"{label}: compressed brute recall {rec[br].mean()}")
+    rec, br = recs["use_pq"]
+    check(rec[~br].mean() >= rec32[~br32].mean() - RECALL_SLACK,
+          f"use_pq: graph recall {rec[~br].mean()} vs f32 "
+          f"{rec32[~br32].mean()}")
+    # the PQ graph route against the exhaustive compressed scan that re-ranks
+    # as deep (graph_rerank * k candidates), on the graph-routed queries
+    rec, br = recs["use_pq+graph_pq"]
+    gi = np.nonzero(~br)[0]
+    depth = passes["use_pq+graph_pq"].search_config().graph_rerank
+    ex = fi.query(qs[gi], [flts[i] for i in gi],
+                  SearchOptions(k=K, ef=EF, use_pq=True, rerank=depth,
+                                force="brute"))
+    rec_ex = np.array([refimpl_recall(ex.ids[j], truth[0][i])
+                       for j, i in enumerate(gi)])
+    line = lines["use_pq+graph_pq"]
+    line["pq_exhaustive_recall"] = {
+        "rerank": depth, "all": float(rec_ex.mean()),
+        "per_scenario": {nm: float(rec_ex[np.asarray(names)[gi] == nm].mean())
+                         for nm in dict.fromkeys(np.asarray(names)[gi])}}
+    emit(line)
+    check(rec[~br].mean() >= rec_ex.mean() - RECALL_SLACK,
+          f"use_pq+graph_pq: graph recall {rec[~br].mean()} vs the "
+          f"exhaustive compressed scan's {rec_ex.mean()}")
+
+    # -- SQ on both compressed routes, untimed ------------------------------
+    sq = FavorIndex(fi.index, fi.attrs, BuildSpec(
+        hnsw=spec.hnsw, quant=QuantSpec(kind="sq", rerank=RERANK)))
+    sq_line = {"phase": "serve", "pass": "sq"}
+    for label, opts in (("sq_use_pq", SearchOptions(k=K, ef=EF, use_pq=True)),
+                        ("sq_graph", SearchOptions(k=K, ef=EF,
+                                                   graph_quant="sq"))):
+        res = sq.query(qs, flts, opts)
+        rec = np.array([refimpl_recall(res.ids[i], truth[0][i])
+                        for i in range(b)])
+        br = res.routed_brute
+        sq_line[label] = {"recall_brute": float(rec[br].mean()),
+                          "recall_graph": float(rec[~br].mean())}
+        check(rec[br].mean() >= 1.0 - RECALL_SLACK,
+              f"{label}: brute recall {rec[br].mean()}")
+        check(rec[~br].mean() >= rec32[~br32].mean() - RECALL_SLACK,
+              f"{label}: graph recall {rec[~br].mean()}")
+    emit(sq_line)
+    emit({"phase": "serve", "pass": "build", "n": n, "d": d,
+          "hnsw": {"M": 16, "M0": 32, "efc": 100},
+          "quant": {"kind": "pq", "m": PQ_M, "nbits": PQ_BITS,
+                    "rerank": RERANK},
+          "build_s": fi.build_seconds,
+          "quantize_s": total_build_s - fi.build_seconds,
+          "batch": b, "k": K, "ef": EF})
+    return {"f32": lines["f32"]["launches"],
+            "use_pq": lines["use_pq"]["launches"],
+            "use_pq+graph_pq": lines["use_pq+graph_pq"]["launches"]}
+
+
+def refimpl_recall(found, truth_row) -> float:
+    from repro_torch.core import refimpl
+    return refimpl.recall_at_k(found, truth_row[truth_row >= 0], K)
 
 
 def main() -> int:
@@ -414,8 +670,11 @@ def main() -> int:
 
     kernels = phase_kernels(dev, rates)
     launches = phase_serve(dev)
+    # each kernel's launches on the pass of the main path that runs it
+    main_pass = {"filtered_topk": "f32", "gather_distance": "f32",
+                 "pq_adc_topr": "use_pq", "pq_adc_gather": "use_pq+graph_pq"}
     for kname, row in kernels.items():
-        row["launches"] = launches[kname]
+        row["launches"] = launches[main_pass[kname]][kname]
     emit({"kernels": [{k: v for k, v in row.items() if k != "shape"}
                       for row in kernels.values()]})
     print(smi, flush=True)

@@ -1,8 +1,10 @@
 """Carry an index built by the JAX package across to the port.
 
 The JAX package's FAVOR state is numpy on the host -- the HNSW arrays, the
-attribute table and the schema -- so it crosses as plain arrays and the
-port builds its device state from them.  ``FavorIndex.load`` of an index the
+attribute table, the schema and, for a quantized index, the codebook and
+the codes -- so it crosses as plain arrays and the port builds its device
+state from them: a JAX-built quantized index serves the same codes and LUTs
+in both packages.  ``FavorIndex.load`` of an index the
 JAX package saved goes through the same function.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ import numpy as np
 from .core import filters as F
 from .core.favor import FavorIndex
 from .core.hnsw import HnswIndex, HnswParams
+from .quant import PQCodebook, SQCodebook
 
 _PARAM_FIELDS = ("M", "M0", "efc", "ml", "alpha", "heuristic", "seed")
 
@@ -43,13 +46,17 @@ def _schema(schema) -> F.Schema:
 def from_reference_arrays(*, vectors, levels, node_level, entry_point,
                           delta_d, params, ints, floats, schema,
                           max_level: int | None = None, norms=None,
+                          centroids=None, lo=None, scale=None, codes=None,
                           spec=None, device=None) -> FavorIndex:
     """Build the port's FavorIndex on ``device`` (None = the CUDA device)
     from the JAX package's index state as numpy arrays: the HnswIndex's
     vectors, levels, node_level, entry_point, delta_d and params (an
     HnswParams of either package or a dict), the attribute ints/floats and
     the schema.  ``norms`` (N,) are recomputed from the vectors when not
-    given, as ``HnswIndex.load`` does."""
+    given, as ``HnswIndex.load`` does.  A quantized index also passes its
+    codebook -- PQ ``centroids`` (M, K, dsub), or SQ ``lo`` and ``scale``
+    (d,) -- and optionally its ``codes`` (N, M or d) uint8; without codes
+    the port encodes the rows itself."""
     levels = [np.asarray(lv, np.int32) for lv in levels]
     if max_level is None:
         max_level = len(levels) - 1 if int(entry_point) >= 0 else -1
@@ -64,4 +71,11 @@ def from_reference_arrays(*, vectors, levels, node_level, entry_point,
         norms=None if norms is None else np.asarray(norms, np.float32))
     attrs = F.AttributeTable(_schema(schema), np.asarray(ints, np.int32),
                              np.asarray(floats, np.float32))
-    return FavorIndex(index, attrs, spec, device=device)
+    codebook = None
+    if centroids is not None:
+        codebook = PQCodebook(np.asarray(centroids, np.float32), index.dim)
+    elif lo is not None:
+        codebook = SQCodebook(np.asarray(lo, np.float32),
+                              np.asarray(scale, np.float32), index.dim)
+    return FavorIndex(index, attrs, spec, codebook=codebook, codes=codes,
+                      device=device)

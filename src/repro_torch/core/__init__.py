@@ -10,19 +10,20 @@ from .filters import (And, AttributeTable, ColumnSpec, Equality, FalseFilter,
 from .hnsw import HnswIndex, HnswParams, build_hnsw
 from .options import BuildSpec, QuantSpec, SearchOptions
 from .router import RoutePlan, SearchResult
-from .scoring import ExactScorer
+from .scoring import ExactScorer, PqAdcScorer, SqScorer, scorer_for
 from .search import (SearchConfig, favor_graph_search, graph_arrays,
                      rsf_graph_search)
 
 __all__ = [
     "And", "AttributeTable", "BuildSpec", "ColumnSpec", "Equality",
     "ExactScorer", "FalseFilter", "Filter", "FavorIndex", "HnswIndex",
-    "HnswParams", "Inclusion", "LocalBackend", "Not", "Or", "QuantSpec",
+    "HnswParams", "Inclusion", "LocalBackend", "Not", "Or", "PqAdcScorer",
+    "QuantSpec",
     "Range", "RoutePlan", "Schema", "SearchConfig", "SearchOptions",
     "SearchResult", "TrueFilter", "batch_signatures", "build_hnsw",
     "compile_filter", "exclusion", "favor_graph_search",
     "filter_signature", "filters", "graph_arrays", "paper_filters",
     "paper_schema", "prefbf", "program_signature", "random_attributes",
     "refimpl", "resolve_device", "router", "rsf_graph_search",
-    "selectivity", "selector", "stack_programs",
+    "scorer_for", "selectivity", "selector", "SqScorer", "stack_programs",
 ]

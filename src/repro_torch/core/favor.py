@@ -9,15 +9,22 @@ Online :  compile each query's filter to a DNF program, estimate p_hat on the
           scan or the exclusion-distance graph search (section 5), returning
           the k nearest target points.
 
+With ``BuildSpec(quant=QuantSpec(...))`` the offline phase also trains a PQ
+codebook (k-means on the device) or an SQ quantizer -- or takes the
+``codebook=`` given -- and encodes the rows, so the brute route can run the
+compressed ADC scan (``SearchOptions.use_pq``) and the graph route can score
+on codes (``SearchOptions.graph_quant``).
+
 The online pipeline lives in router.execute; this class owns the offline
 state and exposes it through a LocalBackend.  Everything runs on the CUDA
 device unless the caller passes ``device="cpu"``; with no CUDA device the
 default raises instead of falling back to the CPU.  ``save``/``load`` use
 the JAX package's ``.npz`` layout, so an index moves between the two
-packages unchanged.
+packages unchanged, quantization state included.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -27,7 +34,7 @@ from . import filters as F
 from . import prefbf, selectivity
 from .backend import LocalBackend
 from .hnsw import HnswIndex, HnswParams, build_hnsw
-from .options import BuildSpec, SearchOptions
+from .options import BuildSpec, QuantSpec, SearchOptions
 from .router import SearchResult, compile_programs, execute
 from .search import graph_topology
 
@@ -51,13 +58,21 @@ class FavorIndex:
     """Single-device FAVOR index; execution goes through a LocalBackend."""
 
     def __init__(self, index: HnswIndex, attrs: F.AttributeTable,
-                 spec: BuildSpec | None = None, *, device=None):
+                 spec: BuildSpec | None = None, *, codebook=None,
+                 codes=None, device=None):
         self.device = resolve_device(device)
         if spec is None:
             spec = BuildSpec()
         elif not isinstance(spec, BuildSpec):
             raise TypeError("spec must be a BuildSpec, got "
                             f"{type(spec).__name__}")
+        if spec.quant is None and codebook is not None:
+            # a given codebook implies its quant kind and geometry
+            from ..quant import PQCodebook
+            q = (QuantSpec(kind="pq", m=codebook.m, nbits=codebook.nbits)
+                 if isinstance(codebook, PQCodebook) else QuantSpec(kind="sq"))
+            spec = BuildSpec(hnsw=spec.hnsw, selector=spec.selector,
+                             prefbf_chunk=spec.prefbf_chunk, quant=q)
         if index.n == 0:
             raise ValueError("empty index: an index without base rows comes "
                              "with the live-index slice of the port")
@@ -87,7 +102,65 @@ class FavorIndex:
         self.g = graph_topology(index, dev)
         self.g.update({"vectors": pv[:n], "norms": pn[:n],
                        "attrs_int": pi[:n], "attrs_float": pf[:n]})
+        self._quantize(spec.quant, codebook, codes, padded[0])
         self.backend = LocalBackend(self)
+
+    def _quantize(self, q, codebook, codes, padded_vectors) -> None:
+        """Optional compressed-domain state: the codebook (trained here when
+        none is given), the codes of the *padded* DB -- so code rows align
+        with the ``_pf`` arrays; padded rows encode the zero vector and
+        their +inf norms gate them out of the scan -- and the graph
+        scorer's arrays in ``g``."""
+        self.quantize = q.kind if q is not None else None
+        self.rerank = q.rerank if q is not None else 4
+        self.codebook = None
+        self._codes = None
+        self._cb_dev = None
+        if q is None:
+            if codes is not None:
+                raise ValueError("codes= supplied but the index requests no "
+                                 "quantization (spec.quant is None and no "
+                                 "codebook was given)")
+            return
+        from .. import quant
+        index, dev = self.index, self.device
+        if codebook is not None:
+            kind = "pq" if isinstance(codebook, quant.PQCodebook) else "sq"
+            if kind != q.kind:
+                raise ValueError(f"spec.quant.kind={q.kind!r} does not match "
+                                 f"the supplied {kind!r} codebook")
+            if kind == "pq" and (codebook.m, codebook.nbits) != (q.m, q.nbits):
+                raise ValueError(
+                    f"spec.quant geometry (m={q.m}, nbits={q.nbits}) does not "
+                    f"match the supplied codebook (m={codebook.m}, "
+                    f"nbits={codebook.nbits})")
+        elif q.kind == "pq":
+            codebook = quant.train_pq(index.vectors, m=q.m, nbits=q.nbits,
+                                      iters=q.train_iters,
+                                      sample=q.train_sample,
+                                      seed=index.params.seed, device=dev)
+        else:
+            codebook = quant.train_sq(index.vectors)
+        self.codebook = codebook
+        if codes is not None:
+            codes = np.array(codes, np.uint8)
+            if codes.shape[0] != index.n:
+                raise ValueError(f"codes= carries {codes.shape[0]} rows for "
+                                 f"an index of {index.n}")
+            pad = padded_vectors[index.n:]
+            self._codes = torch.cat([
+                torch.as_tensor(codes, device=dev),
+                quant.encode(codebook, pad, device=dev)]).contiguous()
+        else:
+            self._codes = quant.encode(codebook, padded_vectors, device=dev)
+        if q.kind == "pq":
+            self._cb_dev = (torch.as_tensor(codebook.centroids, device=dev),)
+            self.g["centroids"] = self._cb_dev[0]
+        else:
+            self._cb_dev = (torch.as_tensor(codebook.lo, device=dev),
+                            torch.as_tensor(codebook.scale, device=dev))
+            self.g["sq_lo"], self.g["sq_scale"] = self._cb_dev
+        self.g["codes"] = self._codes[:index.n]
 
     # -- construction --------------------------------------------------------
     @staticmethod
@@ -135,40 +208,66 @@ class FavorIndex:
         raise NotImplementedError(_LIVE)
 
     # -- persistence -----------------------------------------------------------
+    def _quant_payload(self) -> dict | None:
+        """Quantization state persisted inside the .hnsw.npz: the codebook
+        tables and the (unpadded) codes."""
+        if self.codebook is None:
+            return None
+        payload = {"kind": self.quantize, "dim": self.codebook.dim,
+                   "codes": self._codes[:self.index.n].cpu().numpy()}
+        if self.quantize == "pq":
+            payload["centroids"] = np.asarray(self.codebook.centroids)
+        else:
+            payload["lo"] = np.asarray(self.codebook.lo)
+            payload["scale"] = np.asarray(self.codebook.scale)
+        return payload
+
     def save(self, path: str) -> None:
-        """``path + ".hnsw.npz"`` and ``path + ".attrs.npz"``, the JAX
-        package's layout."""
-        self.index.save(path + ".hnsw.npz")
+        """``path + ".hnsw.npz"`` (with ``quant_*`` keys when quantized),
+        ``path + ".attrs.npz"`` and, when quantized, the codebook as
+        ``path + ".quant.npz"``: the JAX package's layout."""
+        self.index.save(path + ".hnsw.npz", quant=self._quant_payload())
         np.savez_compressed(path + ".attrs.npz", ints=self.attrs.ints,
                             floats=self.attrs.floats,
                             kinds=np.array([c.kind for c in self.schema.columns]),
                             names=np.array([c.name for c in self.schema.columns]),
                             vocabs=np.array([c.vocab or 0 for c in self.schema.columns]))
+        if self.codebook is not None:
+            from ..quant import save_codebook
+            save_codebook(path + ".quant.npz", self.codebook)
 
     @staticmethod
     def load(path: str, spec: BuildSpec | None = None, *,
              device=None) -> "FavorIndex":
-        """Load an index saved by either package (``FavorIndex.save``)."""
+        """Load an index saved by either package (``FavorIndex.save``); its
+        quantization state comes from the ``quant_*`` keys, else from a
+        ``.quant.npz`` codebook beside it (the codes are then re-encoded)."""
         from ..convert import from_reference_arrays
-        with np.load(path + ".hnsw.npz") as z:
-            if any(k.startswith("quant_") for k in z.files):
-                raise NotImplementedError(
-                    f"{path!r} carries quantization state: compressed "
-                    "indexes come with the compressed routes (port slice 2)")
-            n_levels = int(z["n_levels"])
-            M, M0, efc, alpha, seed = (int(x) for x in z["params"])
-            params = HnswParams(M=M, M0=M0, efc=efc, alpha=alpha, seed=seed,
-                                ml=float(z["ml"]))
-            hnsw = {"vectors": z["vectors"],
-                    "levels": [z[f"level_{l}"] for l in range(n_levels)],
-                    "node_level": z["node_level"],
-                    "entry_point": int(z["entry_point"]),
-                    "max_level": int(z["max_level"]),
-                    "delta_d": float(z["delta_d"])}
+        index = HnswIndex.load(path + ".hnsw.npz")
         with np.load(path + ".attrs.npz") as z:
             schema = [(str(n), str(k), int(v))
                       for n, k, v in zip(z["names"], z["kinds"], z["vocabs"])]
             ints, floats = z["ints"], z["floats"]
-        return from_reference_arrays(**hnsw, params=params, ints=ints,
-                                     floats=floats, schema=schema, spec=spec,
-                                     device=device)
+        qs = index.quant_state or {}
+        quant = {k: qs[k] for k in ("centroids", "lo", "scale", "codes")
+                 if k in qs}
+        if not qs and os.path.exists(path + ".quant.npz"):
+            from ..quant import PQCodebook, load_codebook
+            cb = load_codebook(path + ".quant.npz")
+            quant = ({"centroids": cb.centroids} if isinstance(cb, PQCodebook)
+                     else {"lo": cb.lo, "scale": cb.scale})
+        want = spec.quant.kind if spec is not None and spec.quant else None
+        have = ("pq" if "centroids" in quant else "sq") if quant else None
+        if want is not None and have is None:
+            raise ValueError(
+                f"spec requests quant kind={want!r} but {path!r} was saved "
+                "without quantization state")
+        if want is not None and want != have:
+            raise ValueError(f"spec requests quant kind={want!r} but the "
+                             f"saved index carries {have!r}")
+        return from_reference_arrays(
+            vectors=index.vectors, levels=index.levels,
+            node_level=index.node_level, entry_point=index.entry_point,
+            max_level=index.max_level, delta_d=index.delta_d,
+            params=index.params, ints=ints, floats=floats, schema=schema,
+            spec=spec, device=device, **quant)

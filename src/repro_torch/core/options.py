@@ -6,10 +6,9 @@
   SearchOptions -- per-query-batch online knobs (k/ef, routing force,
                    termination)
 
-All three validate eagerly in ``__post_init__``.  The options of the JAX
-package that this port does not run yet -- compressed routes (``quant``,
-``use_pq``, ``graph_quant``; slice 2) and bucketing (``batch``) -- raise
-``NotImplementedError`` instead of being ignored.
+All three validate eagerly in ``__post_init__``.  The one option of the
+JAX package that this port does not run yet -- bucketing (``batch``) --
+raises ``NotImplementedError`` instead of being ignored.
 """
 from __future__ import annotations
 
@@ -26,8 +25,9 @@ GRAPH_QUANT = (None,) + QUANT_KINDS
 
 @dataclass(frozen=True)
 class QuantSpec:
-    """Compressed memory format for the brute-scan rows.  Validated here;
-    indexes that use one come with the compressed routes (slice 2)."""
+    """Compressed memory format of the DB rows: PQ (``m`` subspaces of
+    2^``nbits`` centroids) or SQ codes, and the exact re-rank depth of the
+    compressed brute route (``rerank * k`` candidates)."""
     kind: str = "pq"
     m: int = 8
     nbits: int = 8
@@ -66,10 +66,6 @@ class BuildSpec:
         if self.hnsw is not None and not isinstance(self.hnsw, HnswParams):
             raise TypeError("BuildSpec.hnsw must be HnswParams or None, "
                             f"got {type(self.hnsw).__name__}")
-        if self.quant is not None:
-            raise NotImplementedError(
-                "BuildSpec.quant: compressed indexes come with the compressed "
-                "routes (port slice 2)")
 
 
 @dataclass(frozen=True)
@@ -79,6 +75,14 @@ class SearchOptions:
     ``force`` pins the route for benchmarks/ablations and must be None,
     "graph" or "brute".  ``max_steps`` bounds the total traversal waves
     across the lane-compaction ladder; 0 keeps the 8*ef safety bound.
+
+    ``use_pq`` runs the brute route as the compressed ADC scan plus an exact
+    re-rank of ``max(k, rerank * k)`` candidates (``rerank=None`` defers to
+    the index's ``QuantSpec.rerank``; 0 re-ranks exactly the top k).
+    ``graph_quant`` picks the graph route's scorer: None keeps f32, "pq" /
+    "sq" score neighbour blocks on the index's codes of that kind and
+    exact-re-rank the final top ``max(k, graph_rerank * k)`` TD candidates,
+    capped at ef (``graph_rerank=None`` means 4).
     """
     k: int = 10
     ef: int = 100
@@ -88,7 +92,9 @@ class SearchOptions:
     cand_cap: int = 0
     max_steps: int = 0
     use_pq: bool = False
+    rerank: int | None = None
     graph_quant: str | None = None
+    graph_rerank: int | None = None
     batch: object = None
 
     def __post_init__(self):
@@ -105,13 +111,15 @@ class SearchOptions:
         if self.max_steps < 0:
             raise ValueError(f"SearchOptions.max_steps must be >= 0, "
                              f"got {self.max_steps}")
+        if self.rerank is not None and self.rerank < 0:
+            raise ValueError(f"SearchOptions.rerank must be None or >= 0, "
+                             f"got {self.rerank}")
         if self.graph_quant not in GRAPH_QUANT:
             raise ValueError(f"SearchOptions.graph_quant must be one of "
                              f"{GRAPH_QUANT}, got {self.graph_quant!r}")
-        if self.use_pq or self.graph_quant is not None:
-            raise NotImplementedError(
-                "SearchOptions.use_pq / graph_quant: the compressed routes "
-                "come in port slice 2")
+        if self.graph_rerank is not None and self.graph_rerank < 0:
+            raise ValueError(f"SearchOptions.graph_rerank must be None or "
+                             f">= 0, got {self.graph_rerank}")
         if self.batch is not None:
             raise NotImplementedError(
                 "SearchOptions.batch: bucketing (core/batching.py) comes in a "
@@ -121,7 +129,10 @@ class SearchOptions:
         """Lower to the config the traversal runs with."""
         return SearchConfig(k=self.k, ef=self.ef, cand_cap=self.cand_cap,
                             max_steps=self.max_steps,
-                            pbar_min=self.pbar_min, gamma=self.gamma)
+                            pbar_min=self.pbar_min, gamma=self.gamma,
+                            graph_quant=self.graph_quant,
+                            graph_rerank=(4 if self.graph_rerank is None
+                                          else self.graph_rerank))
 
     def with_(self, **overrides) -> "SearchOptions":
         return replace(self, **overrides)

@@ -114,6 +114,7 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
     if defer:
         raise NotImplementedError("execute(defer=True) comes with the "
                                   "serving slice of the port")
+    backend.validate(opts)
     dev = backend.device
     if isinstance(queries, torch.Tensor):
         queries = queries.to(device=dev, dtype=torch.float32).contiguous()

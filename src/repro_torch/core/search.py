@@ -11,11 +11,16 @@ The counterpart of the JAX package's ``core/search.py``:
    pools updated by a stable sort of (pool || new-neighbor-block) -- no
    dynamic heaps.  C capacity = ``cand_cap`` (default ef) is the
    bounded-memory approximation of the paper's unbounded heap;
- * neighbor-block scoring is ``core.scoring.ExactScorer``: one
-   ``gather_distance`` call per block returns the exclusion distance (Eq. 2)
-   and the TD bit of every gathered row -- the hand-written kernel on CUDA
-   tensors, its plain version on CPU tensors.  The candidate pool C carries
+ * neighbor-block scoring is pluggable (``core.scoring``, picked by
+   ``SearchConfig.graph_quant``): f32 rows (``ExactScorer``, the
+   ``gather_distance`` kernel), PQ codes (``PqAdcScorer``, the
+   ``pq_adc_gather`` kernel) or SQ codes (``SqScorer``, plain torch).  One
+   ``score_block`` call per block returns the exclusion distance (Eq. 2)
+   and the TD bit of every gathered row.  The candidate pool C carries
    each entry's TD bit, so the expanded node's needs no second evaluation;
+ * quantized scorers get an exact f32 re-rank of the final top
+   ``min(ef, max(k, graph_rerank * k))`` TD candidates
+   (``quant.adc._exact_rerank``, the brute route's pass);
  * termination implements section 5.4: the usual adjusted-distance condition
    AND the TD-fraction guard ``pbar > pbar_min`` (0 disables);
  * the visited set is a packed per-query bitfield ``(B, ceil(N/32))`` of
@@ -23,10 +28,11 @@ The counterpart of the JAX package's ``core/search.py``:
    scatter-OR: bits are deduplicated within a block, then scatter-added);
  * the loop is *lane-compacted* (``SearchConfig.lane_compact``): a ladder of
    stage widths B, B/2, ... -- each stage exits once the active-lane
-   population fits the next, survivors are packed into a half-width batch.
-   Results are identical to the single-stage loop because every per-lane op
-   is row-wise and the scorer is bit-stable across batch widths; it sets
-   the ``waves`` diagnostic.
+   population fits the next, survivors are packed into a half-width batch
+   (every per-query leaf of the scorer state is sliced with them, the
+   scorer's ``shared_state`` is not).  Results are identical to the
+   single-stage loop because every per-lane op is row-wise and every scorer
+   is bit-stable across batch widths; it sets the ``waves`` diagnostic.
 
 ``favor_graph_search`` (exclusion distances) and ``rsf_graph_search``
 (result-set-filtering baseline: D = 0, R admits TD only) are two thin entry
@@ -41,7 +47,7 @@ import torch
 
 from . import filters as F
 from .hnsw import HnswIndex
-from .scoring import ExactScorer
+from .scoring import scorer_for
 
 INF = float("inf")
 
@@ -54,6 +60,9 @@ class SearchConfig:
     max_steps: int = 0         # 0 -> 8 * ef safety bound
     pbar_min: float = 0.5      # section 5.4 threshold (0 disables)
     gamma: float = 1.0         # Algorithm 3 line 8 slack
+    graph_quant: str | None = None  # None (f32) | "pq" | "sq" scorer
+    graph_rerank: int = 4      # exact-re-rank depth: top max(k, rr*k) TD
+                               # candidates, capped at ef (quantized only)
     lane_compact: int = 2      # halve the wave width whenever the active-lane
                                # population fits the next stage, down to this
                                # floor (0 disables; results are identical)
@@ -142,6 +151,21 @@ def _visit_bits(visited, rows, safe, mark):
 # ---------------------------------------------------------------------------
 # Traversal building blocks
 # ---------------------------------------------------------------------------
+def _take_lanes(state: dict, sel, shared=()) -> dict:
+    """Slice every per-query leaf of a scorer state (tensors and dicts of
+    tensors, leading batch axis) to the lanes ``sel``; keys in ``shared``
+    are query-independent and stay as they are."""
+    out = {}
+    for key, v in state.items():
+        if key in shared:
+            out[key] = v
+        elif isinstance(v, dict):
+            out[key] = {k: x[sel] for k, x in v.items()}
+        else:
+            out[key] = v[sel]
+    return out
+
+
 def _descend(g: dict, queries: torch.Tensor, scorer, sstate: dict):
     """Upper-layer greedy descent (no filtering), returns entry ids (B,)."""
     b = queries.shape[0]
@@ -305,7 +329,7 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
     out_keys = ("res_d", "res_i", "res_t", "hops", "path_td")
     final = {k: state[k] for k in out_keys}
     perm = torch.arange(b, device=dev)
-    progs_s, D_s, sstate_s = programs, D, sstate
+    D_s, sstate_s = D, sstate
     for si in range(len(sizes)):
         limit = sizes[si + 1] if si + 1 < len(sizes) else 0
         state = stage_loop(state, D_s, sstate_s, limit)
@@ -321,21 +345,31 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
             perm = perm[sel]
             state = {k: (v if k == "step" else v[sel])
                      for k, v in state.items()}
-            progs_s = {k: v[sel] for k, v in progs_s.items()}
             D_s = D_s[sel]
-            sstate_s = {"q": sstate_s["q"][sel], "programs": progs_s}
+            sstate_s = _take_lanes(sstate_s, sel, scorer.shared_state)
     waves = state["step"]
 
     # --- final S: k nearest TD in R (Algorithm 2 line 9) --------------------
-    sd = torch.where(final["res_t"], final["res_d"], INF)
-    order = torch.sort(sd, dim=1, stable=True).indices[:, :cfg.k]
-    out_d = sd.gather(1, order)
-    out_i = final["res_i"].gather(1, order)
-    out_i = torch.where(torch.isfinite(out_d), out_i, -1)
+    sd = torch.where(final["res_t"], final["res_d"], INF)  # TD: dbar == d
+    if scorer.exact:
+        order = torch.sort(sd, dim=1, stable=True).indices[:, :cfg.k]
+        out_d = sd.gather(1, order)
+        out_i = final["res_i"].gather(1, order)
+    else:
+        # quantized scorer: the pool holds approximate distances -- exact
+        # f32 re-rank of the top-R TD candidates, as the brute route's
+        # compressed scan does; R caps at ef (the pool size)
+        from ..quant.adc import _exact_rerank
+        r = min(ef, max(cfg.k, cfg.graph_rerank * cfg.k))
+        order = torch.sort(sd, dim=1, stable=True).indices[:, :r]
+        cand = torch.where(torch.isfinite(sd.gather(1, order)),
+                           final["res_i"].gather(1, order), -1)
+        out_i, out_d = _exact_rerank(g["vectors"], g["norms"], queries, cand,
+                                     k=cfg.k)
     if valid is not None:
         vmask = torch.as_tensor(valid, dtype=torch.bool, device=dev)[:, None]
-        out_i = torch.where(vmask, out_i, -1)
         out_d = torch.where(vmask, out_d, INF)
+    out_i = torch.where(torch.isfinite(out_d), out_i, -1)
     return {"ids": out_i, "dists": out_d,
             "hops": final["hops"], "path_td": final["path_td"],
             # a wave is a batch-wide event (every co-resident lane pays it),
@@ -351,7 +385,9 @@ def favor_graph_search(g: dict, queries: torch.Tensor, programs: dict,
                        valid=None) -> dict:
     """Batched OptiGreedySearch (Algorithm 3) with exclusion distances.
 
-    g         : graph_arrays dict (tensors on the queries' device)
+    g         : graph_arrays dict (tensors on the queries' device); for
+                ``cfg.graph_quant`` it also carries the scorer's arrays
+                (codes + centroids | sq_lo / sq_scale)
     queries   : (B, d) float32
     programs  : batched filter programs {valid (B,W), imask, flo, fhi}
     D         : (B,) per-query exclusion distance (Eq. 14, from p_hat)
@@ -361,7 +397,7 @@ def favor_graph_search(g: dict, queries: torch.Tensor, programs: dict,
                  "hops": (B,), "path_td": (B,), "waves": (B,) int32 -- total
                  loop iterations across the compaction ladder}
     """
-    return _graph_traverse(g, queries, programs, D, cfg, ExactScorer(),
+    return _graph_traverse(g, queries, programs, D, cfg, scorer_for(cfg),
                            valid, rsf=False)
 
 
@@ -371,5 +407,5 @@ def rsf_graph_search(g: dict, queries: torch.Tensor, programs: dict,
     admits TD (C takes everything)."""
     b = queries.shape[0]
     D = torch.zeros((b,), dtype=torch.float32, device=queries.device)
-    return _graph_traverse(g, queries, programs, D, cfg, ExactScorer(),
+    return _graph_traverse(g, queries, programs, D, cfg, scorer_for(cfg),
                            valid, rsf=True)

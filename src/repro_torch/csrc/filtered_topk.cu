@@ -38,12 +38,14 @@
 //  * pad rows -- norm +inf or >= BIG, as prefbf.pad_db writes them -- and
 //    rows past the split are gated explicitly and never returned, in both
 //    modes (the reference kernel returns pad ids in exclusion mode);
-//  * no block carries state into another: a second small kernel merges the
-//    splits' lists per query in the same (distance, id) order.
+//  * no block carries state into another: a second small kernel
+//    (favor::merge_splits, topk_merge.cuh) merges the splits' lists per
+//    query in the same (distance, id) order.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "filter_program.cuh"
+#include "topk_merge.cuh"
 
 namespace {
 
@@ -239,47 +241,6 @@ __global__ void __launch_bounds__(TPB) ft_scan(
   }
 }
 
-// One thread per query: pick the k smallest (distance, id) pairs over the
-// splits' sorted lists; empty entries (distance BIG) are skipped.
-__global__ void ft_merge(const float* __restrict__ part_d,
-                         const int* __restrict__ part_i, int B, int S, int k,
-                         float* __restrict__ out_d, int* __restrict__ out_i) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= B) return;
-  const float* pd = part_d + (size_t)qi * S * k;
-  const int* pi = part_i + (size_t)qi * S * k;
-  float prev_d = -INFINITY;
-  int prev_i = -1;
-  int t = 0;
-  for (; t < k; ++t) {
-    float bd = BIG;
-    int bi = -1;
-    for (int s = 0; s < S; ++s) {
-      for (int j = 0; j < k; ++j) {
-        const float cd = pd[s * k + j];
-        if (!(cd < BIG)) break;
-        const int ci = pi[s * k + j];
-        if (cd > prev_d || (cd == prev_d && ci > prev_i)) {
-          if (cd < bd || (cd == bd && ci < bi)) {
-            bd = cd;
-            bi = ci;
-          }
-          break;  // the list is sorted: its later entries come after this
-        }
-      }
-    }
-    if (!(bd < BIG)) break;
-    out_d[(size_t)qi * k + t] = bd;
-    out_i[(size_t)qi * k + t] = bi;
-    prev_d = bd;
-    prev_i = bi;
-  }
-  for (; t < k; ++t) {
-    out_d[(size_t)qi * k + t] = BIG;
-    out_i[(size_t)qi * k + t] = -1;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -321,7 +282,7 @@ int filtered_topk_launch(const void* qt, const void* vec, const void* norms,
       static_cast<int*>(part_i));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ft_merge<<<(B + 127) / 128, 128, 0, st>>>(
+  favor::merge_splits<<<(B + 127) / 128, 128, 0, st>>>(
       static_cast<const float*>(part_d), static_cast<const int*>(part_i), B,
       splits, k, static_cast<float*>(out_d), static_cast<int*>(out_i));
   return (int)cudaGetLastError();

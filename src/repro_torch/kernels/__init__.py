@@ -4,17 +4,24 @@
                      exclusion distance + running top-k (the brute route)
   gather_distance -- neighbour-row gather + L2 distance + filter program +
                      exclusion distance (the graph route's expansion)
+  pq_adc          -- pq_adc_topr: fused ADC LUT scan + filter program +
+                     running top-R (the compressed brute route, ``use_pq``);
+                     pq_adc_gather: neighbour code-row ADC sums + filter
+                     program + exclusion distance (the compressed graph
+                     route, ``graph_quant="pq"``)
 
-Each package's ``ops`` module holds the wrapper (the JAX package's ``ops``
+Each package's ``ops`` module holds the wrappers (the JAX package's ``ops``
 contract: -1 / +inf for missing results and the ``valid`` lane mask) and the
-plain PyTorch version of the same function.  A wrapper given CPU tensors runs
+plain PyTorch version of each function.  A wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernel or raises.
 
 The kernels are CUDA C++ for ``sm_90a`` in ``repro_torch/csrc``, compiled by
 ``nvcc`` into one shared library per source with a plain C interface, loaded
-with ``ctypes``.  ``build_kernels()`` compiles every source in parallel into
-``repro_torch/_build/`` (keyed by a hash of the source, so an edited source
-is rebuilt); a wrapper's first launch builds what is missing.
+with ``ctypes``.  ``SOURCES`` maps each kernel to its source.
+``build_kernels()`` compiles every source in parallel into
+``repro_torch/_build/`` (keyed by a hash of the source and the headers, so
+an edited source is rebuilt); a wrapper's first launch builds what is
+missing.
 
 ``launch_counts`` counts the kernel launches each wrapper made, so a run can
 show that its main path went through the kernels.
@@ -33,7 +40,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {"filtered_topk": "filtered_topk.cu",
-           "gather_distance": "gather_distance.cu"}
+           "gather_distance": "gather_distance.cu",
+           "pq_adc_topr": "pq_adc.cu",
+           "pq_adc_gather": "pq_adc.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -63,66 +72,67 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(src: str) -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+    for path in [CSRC / src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.read_bytes())
     digest = h.hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(src).stem}-{digest}.so"
 
 
-def _start_build(name: str):
-    out = _lib_path(name)
+def _start_build(src: str):
+    out = _lib_path(src)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           str(CSRC / SOURCES[name])]
+           str(CSRC / src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish_build(name: str, job) -> str:
+def _finish_build(src: str, job) -> str:
     if job is None:
         return ""
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+        raise RuntimeError(f"nvcc failed for {src} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return log
 
 
 def build_kernels(names=None) -> dict[str, str]:
-    """Compile (one ``nvcc`` per source, all started together) and load every
-    kernel library; returns each build's ``nvcc -Xptxas -v`` log ("" when the
-    library was already built)."""
+    """Compile (one ``nvcc`` per source, all started together) and load the
+    libraries of the kernels ``names`` (default: all); returns each source's
+    ``nvcc -Xptxas -v`` log ("" when its library was already built)."""
     names = tuple(SOURCES) if names is None else tuple(names)
+    srcs = dict.fromkeys(SOURCES[n] for n in names)
     with _lock:
-        jobs = {n: _start_build(n) for n in names if n not in _libs}
+        jobs = {s: _start_build(s) for s in srcs if s not in _libs}
         logs = {}
         try:
-            for n, job in jobs.items():
-                logs[n] = _finish_build(n, job)
+            for s, job in jobs.items():
+                logs[s] = _finish_build(s, job)
         finally:
             for job in jobs.values():
                 if job is not None and job[0].poll() is None:
                     job[0].kill()
                     job[0].wait()
-        for n in jobs:
-            _libs[n] = ctypes.CDLL(str(_lib_path(n)))
+        for s in jobs:
+            _libs[s] = ctypes.CDLL(str(_lib_path(s)))
     return logs
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built at first use."""
-    lib = _libs.get(name)
+    """The loaded library of kernel ``name``, built at first use."""
+    lib = _libs.get(SOURCES[name])
     if lib is None:
         build_kernels((name,))
-        lib = _libs[name]
+        lib = _libs[SOURCES[name]]
     return lib
 
 

@@ -5,9 +5,10 @@ a machine with a card and the port alone.
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Bar: distances rtol/atol 1e-5, ids equal outside ties, TD bits equal.  The
-kernel's d-long dot is one FMA chain and the plain version's a cuBLAS or
-tree reduction, so the two differ only in the last bits of the squared
-distance."""
+f32 kernels' d-long dot is one FMA chain and the plain version's a cuBLAS
+or tree reduction, so the two differ only in the last bits of the squared
+distance; the PQ kernels and their plain versions add the same LUT entries
+in the same subspace order, so they agree bit for bit."""
 import numpy as np
 import pytest
 
@@ -19,6 +20,7 @@ from repro_torch.core import prefbf  # noqa: E402
 from repro_torch.core.router import compile_programs  # noqa: E402
 from repro_torch.kernels.filtered_topk import ops as ft  # noqa: E402
 from repro_torch.kernels.gather_distance import ops as gd  # noqa: E402
+from repro_torch.kernels.pq_adc import ops as pq  # noqa: E402
 from repro_torch.parity import topk_mismatch  # noqa: E402
 
 TOL = 1e-5
@@ -131,3 +133,122 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="expected cuda"):
         gd.gather_distance(*db, qs, torch.zeros((4, 3), dtype=torch.int32),
                            progs, torch.zeros(4, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# pq_adc_topr / pq_adc_gather
+# ---------------------------------------------------------------------------
+def _pq_case(dev, n, b, m, nbits, seed, n_pad=0, schema_kw=None,
+             lut_dtype=torch.float32):
+    db, _, progs, rng = _case(dev, n, 8, b, seed, schema_kw=schema_kw)
+    _, norms, ints, floats = db
+    if n_pad:
+        norms[-n_pad:] = float("inf")
+        ints[-n_pad:] = -1
+        floats[-n_pad:] = float("nan")
+    ksub = 1 << nbits
+    codes = torch.as_tensor(rng.integers(0, ksub, size=(n, m)),
+                            dtype=torch.uint8, device=dev)
+    luts = torch.as_tensor(rng.uniform(0, 4.0, size=(b, m, ksub)),
+                           dtype=torch.float32, device=dev).to(lut_dtype)
+    return codes, norms, ints, floats, luts, progs, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,b,m,nbits,r,n_pad", [
+    (5000, 37, 8, 6, 40, 100),        # CPU-test widths, pad rows
+    (200_000, 64, 32, 8, 80, 0),      # favor-anns widths: 3 x 32 KB LUTs
+    (3000, 5, 64, 8, 20, 0),          # one 64 KB LUT per block
+    (777, 9, 6, 5, 33, 0),            # M not a multiple of 4 (byte path)
+])
+def test_pq_adc_topr_kernel_matches_plain(dev, n, b, m, nbits, r, n_pad,
+                                          lut_dtype):
+    codes, norms, ints, floats, luts, progs, _ = _pq_case(
+        dev, n, b, m, nbits, seed=n + m, n_pad=n_pad, lut_dtype=lut_dtype)
+    valid = torch.ones(b, dtype=torch.bool, device=dev)
+    valid[0] = False
+    before = K.launch_counts["pq_adc_topr"]
+    kid, kd = pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=r,
+                             valid=valid)
+    torch.cuda.synchronize()
+    assert K.launch_counts["pq_adc_topr"] == before + 1
+    pid, pd = pq.pq_adc_topr_plain(codes, norms, ints, floats, luts, progs,
+                                   r=r, valid=valid)
+    m_ = topk_mismatch(pid.cpu().numpy(), pd.cpu().numpy(),
+                       kid.cpu().numpy(), kd.cpu().numpy(), rtol=TOL,
+                       atol=TOL)
+    assert m_["dist_mismatch"] == 0 and m_["id_mismatch"] == 0, m_
+    assert torch.equal(kd, pd)                     # same sum order
+    assert int(kid.max()) < n - n_pad              # pad rows never returned
+    assert (kid[0] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,b,m0,m,nbits", [(5000, 256, 32, 32, 8),
+                                            (300, 5, 7, 6, 5)])
+def test_pq_adc_gather_kernel_matches_plain(dev, n, b, m0, m, nbits,
+                                            lut_dtype):
+    codes, _, ints, floats, luts, progs, rng = _pq_case(
+        dev, n, b, m, nbits, seed=n + m0, lut_dtype=lut_dtype)
+    ids = torch.as_tensor(rng.integers(-1, n, size=(b, m0)),
+                          dtype=torch.int32, device=dev)
+    dvec = torch.full((b,), 0.4, device=dev)
+    valid = torch.ones(b, dtype=torch.bool, device=dev)
+    valid[-1] = False
+    before = K.launch_counts["pq_adc_gather"]
+    ka = pq.pq_adc_gather(codes, luts, ids, valid=valid)
+    kd, ktd = pq.pq_adc_gather(codes, luts, ids, ints=ints, floats=floats,
+                               programs=progs, dvec=dvec)
+    torch.cuda.synchronize()
+    assert K.launch_counts["pq_adc_gather"] == before + 2
+    pa = pq.pq_adc_gather_plain(codes, luts, ids, valid=valid)
+    pd, ptd = pq.pq_adc_gather_plain(codes, luts, ids, ints=ints,
+                                     floats=floats, programs=progs, dvec=dvec)
+    torch.testing.assert_close(ka, pa, rtol=TOL, atol=TOL)
+    assert torch.equal(ka, pa) and torch.isinf(ka[-1]).all()
+    torch.testing.assert_close(kd, pd, rtol=TOL, atol=TOL)
+    assert torch.equal(ktd, ptd)
+    # batch-width independence: a sub-batch gives the same bits
+    kd2, _ = pq.pq_adc_gather(codes, luts[:2].contiguous(),
+                              ids[:2].contiguous(), ints=ints, floats=floats,
+                              programs={k: x[:2].contiguous()
+                                        for k, x in progs.items()},
+                              dvec=dvec[:2])
+    assert torch.equal(kd2, kd[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schema_kw", [dict(n_float=0, n_int=0),
+                                       dict(n_bool=0, n_int=0)])
+def test_pq_kernels_zero_width_attributes(dev, schema_kw):
+    codes, norms, ints, floats, luts, progs, rng = _pq_case(
+        dev, 900, 9, 8, 6, seed=5, schema_kw=schema_kw)
+    kid, kd = pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=20)
+    pid, pd = pq.pq_adc_topr_plain(codes, norms, ints, floats, luts, progs,
+                                   r=20)
+    assert torch.equal(kid, pid) and torch.equal(kd, pd)
+    ids = torch.as_tensor(rng.integers(-1, 900, size=(9, 12)),
+                          dtype=torch.int32, device=dev)
+    dvec = torch.full((9,), 0.5, device=dev)
+    a, ta = pq.pq_adc_gather(codes, luts, ids, ints=ints, floats=floats,
+                             programs=progs, dvec=dvec)
+    b, tb = pq.pq_adc_gather_plain(codes, luts, ids, ints=ints, floats=floats,
+                                   programs=progs, dvec=dvec)
+    assert torch.equal(a, b) and torch.equal(ta, tb)
+
+
+@pytest.mark.cuda
+def test_pq_wrappers_reject_bad_inputs(dev):
+    codes, norms, ints, floats, luts, progs, _ = _pq_case(dev, 100, 4, 8, 6,
+                                                          seed=1)
+    with pytest.raises(ValueError, match="dtype"):
+        pq.pq_adc_topr(codes.int(), norms, ints, floats, luts, progs, r=5)
+    with pytest.raises(ValueError, match="r=5000"):
+        pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=5000)
+    with pytest.raises(ValueError, match="dtype"):
+        pq.pq_adc_gather(codes, luts.double(),
+                         torch.zeros((4, 3), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="expected cuda"):
+        pq.pq_adc_gather(codes, luts, torch.zeros((4, 3), dtype=torch.int32))

@@ -18,6 +18,7 @@ from repro_torch.core.router import compile_programs  # noqa: E402
 from repro_torch.kernels import _common  # noqa: E402
 from repro_torch.kernels.filtered_topk import ops as ft  # noqa: E402
 from repro_torch.kernels.gather_distance import ops as gd  # noqa: E402
+from repro_torch.kernels.pq_adc import ops as pq  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -96,6 +97,15 @@ def _kernel_args(b=3, n=40, d=8):
     return db, qs, progs
 
 
+def _pq_args(b=3, n=40, m=4, ksub=16):
+    rng = np.random.default_rng(4)
+    codes = torch.as_tensor(rng.integers(0, ksub, size=(n, m)),
+                            dtype=torch.uint8)
+    luts = torch.as_tensor(rng.uniform(0, 1, size=(b, m, ksub)),
+                           dtype=torch.float32)
+    return codes, luts
+
+
 def test_wrappers_raise_on_cuda_request_without_device(monkeypatch):
     """Pretend the tensors are CUDA tensors on a machine with no card: the
     wrappers must raise and never run their plain versions."""
@@ -106,6 +116,10 @@ def test_wrappers_raise_on_cuda_request_without_device(monkeypatch):
                         lambda *a, **k: calls.append("ft"))
     monkeypatch.setattr(gd, "gather_distance_plain",
                         lambda *a, **k: calls.append("gd"))
+    monkeypatch.setattr(pq, "pq_adc_topr_plain",
+                        lambda *a, **k: calls.append("topr"))
+    monkeypatch.setattr(pq, "pq_adc_gather_plain",
+                        lambda *a, **k: calls.append("pqg"))
     db, qs, progs = _kernel_args()
     before = dict(K.launch_counts)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -113,6 +127,11 @@ def test_wrappers_raise_on_cuda_request_without_device(monkeypatch):
     ids = torch.zeros((3, 5), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gd.gather_distance(*db, qs, ids, progs, torch.zeros(3))
+    codes, luts = _pq_args()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pq.pq_adc_topr(codes, db[1], db[2], db[3], luts, progs, r=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pq.pq_adc_gather(codes, luts, ids)
     assert calls == [] and K.launch_counts == before
 
 
@@ -124,20 +143,24 @@ def test_wrappers_on_cpu_run_plain_version_without_counting():
     nb = torch.tensor([[0, 5, -1]] * 3, dtype=torch.int32)
     d, td = gd.gather_distance(*db, qs, nb, progs, torch.zeros(3))
     assert torch.isinf(d[:, 2]).all() and td[:, :2].all()
+    codes, luts = _pq_args()
+    ids, adc = pq.pq_adc_topr(codes, db[1], db[2], db[3], luts, progs, r=4)
+    assert ids.shape == (3, 4) and torch.isfinite(adc).all()
+    d, td = pq.pq_adc_gather(codes, luts, nb, ints=db[2], floats=db[3],
+                             programs=progs, dvec=torch.zeros(3))
+    assert torch.isinf(d[:, 2]).all() and td[:, :2].all()
     assert K.launch_counts == before
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        SearchOptions(use_pq=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        SearchOptions(graph_quant="pq")
+    # the compressed routes are ported: their options construct
+    SearchOptions(use_pq=True, rerank=2)
+    SearchOptions(graph_quant="pq", graph_rerank=2)
+    BuildSpec(quant=QuantSpec())
     with pytest.raises(ValueError):
         SearchOptions(graph_quant="bogus")
     with pytest.raises(NotImplementedError, match="bucketing"):
         SearchOptions(batch=object())
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        BuildSpec(quant=QuantSpec())
     vecs, attrs = _tiny()
     fi = FavorIndex.build(vecs, attrs, HnswParams(M=4, efc=16), device="cpu")
     for op in (fi.upsert, fi.delete, fi.merge):
