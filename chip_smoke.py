@@ -25,7 +25,20 @@ no result):
            counters before it and reads them after it; results are checked
            against exact filtered ground truth (plain brute version on the
            card), against the port's own CPU path on a query subset, and an
-           SQ index is checked on both compressed routes.
+           SQ index is checked on both compressed routes.  A bucketed pass
+           (the f32 options plus ``batch=BatchSpec(...)``, after
+           ``warmup``) must return the unbucketed f32 pass's ids and
+           distances bit for bit, as must one bucketed ``use_pq`` +
+           ``graph_quant="pq"`` batch;
+  embedding_bag  the JAX package's ``embedding_bag`` entry point (its only
+           path) at dlrm-rm2's vocabulary and width, both modes, held to
+           its plain version bit for bit and timed beside
+           ``torch.nn.functional.embedding_bag``;
+  live     on the serve index: 2,048 upserts (256 replacing base ids) and
+           1,024 deletes, a query batch (no deleted id, brute recall@10
+           1.0 against exact ground truth over the live rows, graph recall
+           within 0.02 of the f32 pass), ``merge()`` timed, and the batch
+           again; the launches of each kernel for each step.
 
 Then a ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and as the last line
@@ -66,6 +79,11 @@ BATCH = 1024           # queries per batch (favor-anns' serve batch)
 REPEATS = 10           # timed kernel runs (median)
 SERVE_REPEATS = 5      # timed query batches
 SEED = 0
+BAG_V, BAG_D = 1_000_000, 64   # dlrm-rm2's vocabulary and width
+BAG_B, BAG_L = 65_536, 32      # bags per call, ids per bag (-1 tail)
+BAG_ROUNDS = 5                 # timing rounds of kernel and library call
+LIVE_UPSERT, LIVE_REPLACE, LIVE_DELETE = 2048, 256, 1024
+BUCKETS = dict(min_bucket=8, max_bucket=1024)
 
 
 def emit(obj) -> None:
@@ -397,6 +415,104 @@ def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
     return out
 
 
+def phase_embedding_bag(dev, rates):
+    """The ``embedding_bag`` entry point, its kernel's only path, at
+    dlrm-rm2's vocabulary and width: launch counters reset just before the
+    two calls (sum, mean) and read just after; each output held to the
+    plain version bit for bit; then kernel, plain version and
+    ``torch.nn.functional.embedding_bag`` on the compacted (input, offsets)
+    form timed with CUDA events."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as TF
+
+    from repro_torch import kernels as Kn
+    from repro_torch.kernels.embedding_bag import ops as eb
+
+    rng = np.random.default_rng(SEED + 5)
+    table = torch.as_tensor(rng.standard_normal((BAG_V, BAG_D),
+                                                dtype=np.float32), device=dev)
+    bags = rng.integers(0, BAG_V, size=(BAG_B, BAG_L)).astype(np.int32)
+    cut = rng.integers(1, BAG_L + 1, size=BAG_B)   # random -1 tail per bag
+    bags[np.arange(BAG_L)[None, :] >= cut[:, None]] = -1
+    bags = torch.as_tensor(bags, device=dev)
+    torch.cuda.synchronize()
+
+    Kn.reset_launch_counts()
+    outs = {mode: eb.embedding_bag(table, bags, mode=mode)
+            for mode in ("sum", "mean")}
+    torch.cuda.synchronize()
+    launches = Kn.launch_counts["embedding_bag"]
+    check(launches == 2, f"embedding_bag launched on its path: {launches}")
+
+    valid = bags >= 0
+    flat = bags[valid].long()                      # row-major: bag order
+    offsets = torch.cumsum(valid.sum(dim=1), 0) - valid.sum(dim=1)
+    scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    row = {"name": "embedding_bag", "route": "cuda",
+           "source": "src/repro_torch/csrc/embedding_bag.cu",
+           "replaces": "src/repro/kernels/embedding_bag/kernel.py:44",
+           "launches": launches, "max_abs_err": 0.0}
+    modes = {}
+    for mode, got in outs.items():
+        want = eb.embedding_bag_plain(table, bags, mode=mode)
+        err = float((got - want).abs().max())
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        check(bool(torch.equal(got, want)),
+              f"embedding_bag ({mode}) vs plain: max abs diff {err}")
+        check(bool((got[~valid.any(dim=1)] == 0).all()),
+              f"embedding_bag ({mode}): all-pad bags are 0")
+        lib = TF.embedding_bag(flat, table, offsets, mode=mode)
+        lib_err = float((lib - got).abs().max())
+        check(bool(torch.allclose(lib, got, rtol=RTOL, atol=ATOL)),
+              f"embedding_bag ({mode}) vs F.embedding_bag: {lib_err}")
+        # device time of kernel and library call by CUDA-graph replay (L2
+        # flushed), interleaved, BAG_ROUNDS medians each: the median of the
+        # rounds is reported, and every round beside it; the eager call
+        # (the wrapper's host work included) once
+        kern, libr = [], []
+        for _ in range(BAG_ROUNDS):
+            kern.append(graph_ms(lambda: eb.embedding_bag(
+                table, bags, mode=mode), repeats=2 * REPEATS,
+                flush=scratch.zero_))
+            libr.append(graph_ms(lambda: TF.embedding_bag(
+                flat, table, offsets, mode=mode), repeats=2 * REPEATS,
+                flush=scratch.zero_))
+        modes[mode] = {
+            "ms": statistics.median(kern), "ms_rounds": kern,
+            "eager_ms": cuda_ms(lambda: eb.embedding_bag(
+                table, bags, mode=mode), repeats=2 * REPEATS,
+                flush=scratch.zero_),
+            "plain_ms": cuda_ms(lambda: eb.embedding_bag_plain(
+                table, bags, mode=mode), repeats=REPEATS, flush=scratch.zero_),
+            "library_ms": statistics.median(libr), "library_ms_rounds": libr,
+            "library_max_abs_diff": lib_err}
+    n_valid = int(valid.sum())
+    # each input read once: the ids, every distinct row the valid ids name
+    # (a row named twice is read once), and the outputs written once
+    n_rows = int(torch.unique(flat).numel())
+    bag_bytes = bags.numel() * 4 + n_rows * BAG_D * 4 + BAG_B * BAG_D * 4
+    bag_ops = n_valid * BAG_D                       # one f32 add per element
+    bytes_ms = 1e3 * bag_bytes / rates["hbm_bytes_per_s"]
+    ops_ms = 1e3 * bag_ops / rates["f32_flops"]
+    row.update({"ms": modes["sum"]["ms"], "ms_mean": modes["mean"]["ms"],
+                "eager_ms": modes["sum"]["eager_ms"],
+                "eager_ms_mean": modes["mean"]["eager_ms"],
+                "plain_ms": modes["sum"]["plain_ms"],
+                "plain_ms_mean": modes["mean"]["plain_ms"],
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": modes["sum"]["library_ms"],
+                "library_ms_mean": modes["mean"]["library_ms"],
+                "shape": {"V": BAG_V, "d": BAG_D, "B": BAG_B, "L": BAG_L,
+                          "valid_ids": n_valid, "distinct_rows": n_rows}})
+    emit({"phase": "embedding_bag", **{k: v for k, v in row.items()
+                                       if k != "name"}, "modes": modes})
+    del table, bags, flat, scratch, outs
+    torch.cuda.empty_cache()
+    return row
+
+
 def serve_pass(fi, opts, qs, flts, names, truth, label: str):
     """Drive ``FavorIndex.query`` under ``opts``: one counted batch (launch
     counters reset just before it, read just after it), timed repeats, and
@@ -457,7 +573,8 @@ def serve_pass(fi, opts, qs, flts, names, truth, label: str):
     waves = int(res.waves[~brute].max())
     line = {
         "phase": "serve", "pass": label,
-        "options": {k: v for k, v in vars(opts).items() if v is not None},
+        "options": {k: (vars(v) if k == "batch" else v)
+                    for k, v in vars(opts).items() if v is not None},
         "brute": int(brute.sum()), "graph": int((~brute).sum()),
         "launches": launches, "batch_ms": walls_ms,
         "p50_ms": float(np.percentile(walls_ms, 50)),
@@ -568,9 +685,10 @@ def phase_serve(dev):
     need = {"f32": ("filtered_topk", "gather_distance"),
             "use_pq": ("pq_adc_topr", "gather_distance"),
             "use_pq+graph_pq": ("pq_adc_topr", "pq_adc_gather")}
-    lines, recs = {}, {}
+    lines, recs, results = {}, {}, {}
     for label, opts in passes.items():
         line, res, rec = serve_pass(fi, opts, qs, flts, names, truth, label)
+        results[label] = res
         for kname in need[label]:
             check(line["launches"][kname] > 0,
                   f"{label}: {kname} launched on the main path: "
@@ -631,6 +749,7 @@ def phase_serve(dev):
         check(rec[~br].mean() >= rec32[~br32].mean() - RECALL_SLACK,
               f"{label}: graph recall {rec[~br].mean()}")
     emit(sq_line)
+    bucketed_pass(fi, passes, results, lines, qs, flts, names, truth)
     emit({"phase": "serve", "pass": "build", "n": n, "d": d,
           "hnsw": {"M": 16, "M0": 32, "efc": 100},
           "quant": {"kind": "pq", "m": PQ_M, "nbits": PQ_BITS,
@@ -638,9 +757,186 @@ def phase_serve(dev):
           "build_s": fi.build_seconds,
           "quantize_s": total_build_s - fi.build_seconds,
           "batch": b, "k": K, "ef": EF})
-    return {"f32": lines["f32"]["launches"],
-            "use_pq": lines["use_pq"]["launches"],
-            "use_pq+graph_pq": lines["use_pq+graph_pq"]["launches"]}
+    launches = {"f32": lines["f32"]["launches"],
+                "use_pq": lines["use_pq"]["launches"],
+                "use_pq+graph_pq": lines["use_pq+graph_pq"]["launches"]}
+    phase_live(dev, fi, qs, flts, float(rec32[~br32].mean()))
+    return launches
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.dists.view(np.uint32),
+                                   b.dists.view(np.uint32)))
+
+
+def bucketed_pass(fi, passes, results, lines, qs, flts, names, truth):
+    """The f32 options plus ``batch=BatchSpec(...)`` over the buckets the
+    1024-query batch's estimate and route sub-batches reach, after
+    ``warmup`` of those buckets: ids and distances bit for bit those of the
+    unbucketed f32 pass, and once for ``use_pq`` + ``graph_quant="pq"``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BatchSpec, router
+    from repro_torch.core.batching import ShapeRegistry, warmup
+
+    spec = BatchSpec(**BUCKETS)
+    ref = results["f32"]
+    b, nb = len(qs), int(ref.routed_brute.sum())
+    ladder = tuple(sorted({spec.bucket_for(b), spec.bucket_for(b - nb),
+                           spec.bucket_for(nb)}))
+    opts = passes["f32"].with_(batch=spec)
+    reg = ShapeRegistry()
+    t0 = time.perf_counter()
+    warmup(fi.backend, opts, buckets=ladder, registry=reg)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_shapes = reg.compiled_shapes
+    reg.reset_rows()         # the traffic's pad overhead, not warm-up's
+    res = router.execute(fi.backend, qs, flts, opts, registry=reg)
+    check(same_bits(res, ref), "bucketed f32 pass: ids and distances bit "
+          "for bit the unbucketed pass's")
+    check(bool((res.routed_brute == ref.routed_brute).all()
+               and (res.hops == ref.hops).all()),
+          "bucketed f32 pass: routes and hops as unbucketed")
+    stats = reg.stats()
+    line, res, _ = serve_pass(fi, opts, qs, flts, names, truth, "f32_bucketed")
+    check(same_bits(res, ref), "bucketed f32 pass (timed batch): bit for "
+          "bit the unbucketed pass's")
+    q_opts = passes["use_pq+graph_pq"]
+    rq = fi.query(qs, flts, q_opts.with_(batch=spec))
+    check(same_bits(rq, results["use_pq+graph_pq"]),
+          "bucketed use_pq+graph_pq batch: bit for bit the unbucketed one's")
+    check(stats["compiled_shapes"] == warm_shapes,
+          f"bucketed pass reached only warmed shapes: {stats}")
+    line.update({
+        "ladder": ladder, "warmup_s": warm_s, "registry": stats,
+        "pad_overhead": stats["pad_overhead"],
+        "same_launches_as_f32": line["launches"] == lines["f32"]["launches"],
+        "same_waves_as_f32": line["waves"] == lines["f32"]["waves"],
+        "bit_identical": {"f32": True, "use_pq+graph_pq": True}})
+    emit(line)
+
+
+def phase_live(dev, fi, qs, flts, f32_graph_recall: float):
+    """Mutations on the serve index, then a query batch before and after
+    ``merge()``: no deleted or replaced id returned, brute recall@10 1.0
+    against exact filtered ground truth over the live rows (the plain brute
+    version on the card), graph recall@10 within RECALL_SLACK of the f32
+    pass's; launches of each kernel for each step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as Kn
+    from repro_torch.core import SearchOptions
+    from repro_torch.core import filters as F
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.filtered_topk import ops as ft
+
+    rng = np.random.default_rng(SEED + 9)
+    n0, d, schema = fi.index.n, fi.index.dim, fi.schema
+    new_v = synthetic.make_queries(LIVE_UPSERT, d, dataset_seed=SEED, seed=300)
+    new_a = F.random_attributes(schema, LIVE_UPSERT, seed=SEED + 11)
+    perm = rng.permutation(n0)
+    replaced = perm[:LIVE_REPLACE]
+    plain_n = LIVE_UPSERT - LIVE_REPLACE
+    steps = {}
+
+    Kn.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = np.concatenate([
+        fi.upsert(new_v[:plain_n], new_a.ints[:plain_n],
+                  new_a.floats[:plain_n]),
+        fi.upsert(new_v[plain_n:], new_a.ints[plain_n:],
+                  new_a.floats[plain_n:], replace=replaced)])
+    check(bool((ids == n0 + np.arange(LIVE_UPSERT)).all()),
+          "upsert ids are positional (base_n + slot)")
+    del_delta = rng.choice(ids, LIVE_DELETE // 4, replace=False)
+    del_base = perm[LIVE_REPLACE:LIVE_REPLACE + LIVE_DELETE - len(del_delta)]
+    found = fi.delete(np.concatenate([del_base, del_delta]))
+    torch.cuda.synchronize()
+    check(found == LIVE_DELETE, f"delete found {found} of {LIVE_DELETE}")
+    steps["mutate"] = {"s": time.perf_counter() - t0,
+                       "launches": dict(Kn.launch_counts),
+                       "live_stats": fi.live_stats()}
+    dead = np.concatenate([replaced, del_base, del_delta])
+
+    # exact filtered ground truth over the live rows: ids are positional,
+    # so row i of the concatenation is id i before and after the merge
+    all_v = np.concatenate([fi.index.vectors, new_v])
+    all_i = np.concatenate([fi.attrs.ints, new_a.ints])
+    all_f = np.concatenate([fi.attrs.floats, new_a.floats])
+    norms = np.einsum("nd,nd->n", all_v, all_v).astype(np.float32)
+    norms[dead] = np.inf
+    db = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+          for a in (all_v, norms, all_i, all_f)]
+    gt, _ = ft.filtered_topk_plain(*db, torch.as_tensor(qs, device=dev),
+                                   fi.compile_filters(flts), k=K)
+    gt = gt.cpu().numpy()
+    masks = [F.eval_program(F.compile_filter(f, schema), all_i, all_f).numpy()
+             for f in flts]
+    opts = SearchOptions(k=K, ef=EF)
+
+    def live_query(label):
+        torch.cuda.synchronize()
+        Kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fi.query(qs, flts, opts)
+        wall = time.perf_counter() - t0
+        launches = dict(Kn.launch_counts)
+        check(not np.isin(res.ids, dead).any(),
+              f"live {label}: a deleted or replaced id came back")
+        check(all(masks[i][res.ids[i][res.ids[i] >= 0]].all()
+                  for i in range(len(qs))),
+              f"live {label}: a non-target row came back")
+        rec = np.array([refimpl_recall(res.ids[i], gt[i])
+                        for i in range(len(qs))])
+        br = res.routed_brute
+        check(bool((rec[br] == 1.0).all()),
+              f"live {label}: brute recall@10 {rec[br].mean()} (want 1.0)")
+        check(rec[~br].mean() >= f32_graph_recall - RECALL_SLACK,
+              f"live {label}: graph recall@10 {rec[~br].mean()} vs the f32 "
+              f"pass's {f32_graph_recall}")
+        steps[label] = {"batch_ms": 1e3 * wall, "launches": launches,
+                        "brute": int(br.sum()), "graph": int((~br).sum()),
+                        "recall_at_10": {"brute": float(rec[br].mean()),
+                                         "graph": float(rec[~br].mean())},
+                        "waves": int(res.waves[~br].max())}
+
+    live_query("query_before_merge")
+    torch.cuda.synchronize()
+    Kn.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fi.merge()
+    torch.cuda.synchronize()
+    steps["merge"] = {"s": time.perf_counter() - t0,
+                      "launches": dict(Kn.launch_counts), **out}
+    check(out["merged_slots"] == LIVE_UPSERT
+          and fi.index.n == n0 + LIVE_UPSERT
+          and fi.live_stats()["delta_rows"] == 0, f"merge: {out}")
+    check(bool(np.array_equal(fi.index.vectors[n0:], new_v)
+               and np.array_equal(fi.attrs.ints[n0:], new_a.ints)),
+          "merged rows sit at their positional ids")
+    live_query("query_after_merge")
+    # every live upserted row is its own nearest neighbour, under its id
+    keep = ids[~np.isin(ids, dead)][:64]
+    own = fi.query(all_v[keep], F.TrueFilter(),
+                   SearchOptions(k=K, ef=EF, force="brute"))
+    check(bool((own.ids[:, 0] == keep).all()),
+          "merged rows are found under their ids")
+    # the compressed brute route on the re-encoded codes
+    pq = fi.query(qs, flts, SearchOptions(k=K, ef=EF, use_pq=True))
+    br = pq.routed_brute
+    rec = np.array([refimpl_recall(pq.ids[i], gt[i]) for i in range(len(qs))])
+    check(not np.isin(pq.ids, dead).any() and
+          rec[br].mean() >= 1.0 - RECALL_SLACK,
+          f"live use_pq after merge: brute recall {rec[br].mean()}")
+    steps["use_pq_after_merge"] = {"recall_brute": float(rec[br].mean())}
+    emit({"phase": "live", "upserts": LIVE_UPSERT, "replaced": LIVE_REPLACE,
+          "deletes": LIVE_DELETE, "f32_graph_recall": f32_graph_recall,
+          **steps})
 
 
 def refimpl_recall(found, truth_row) -> float:
@@ -669,12 +965,13 @@ def main() -> int:
                     for k, v in logs.items()}})
 
     kernels = phase_kernels(dev, rates)
+    kernels["embedding_bag"] = phase_embedding_bag(dev, rates)
     launches = phase_serve(dev)
     # each kernel's launches on the pass of the main path that runs it
     main_pass = {"filtered_topk": "f32", "gather_distance": "f32",
                  "pq_adc_topr": "use_pq", "pq_adc_gather": "use_pq+graph_pq"}
-    for kname, row in kernels.items():
-        row["launches"] = launches[main_pass[kname]][kname]
+    for kname, pass_ in main_pass.items():
+        kernels[kname]["launches"] = launches[pass_][kname]
     emit({"kernels": [{k: v for k, v in row.items() if k != "shape"}
                       for row in kernels.values()]})
     print(smi, flush=True)

@@ -1,6 +1,8 @@
 """FAVOR core on PyTorch: the paper's contribution as a torch/CUDA library."""
-from . import exclusion, filters, prefbf, refimpl, router, selectivity, selector
+from . import (batching, exclusion, filters, prefbf, refimpl, router,
+               selectivity, selector)
 from .backend import LocalBackend
+from .batching import BatchSpec, ShapeRegistry
 from .favor import FavorIndex, resolve_device
 from .filters import (And, AttributeTable, ColumnSpec, Equality, FalseFilter,
                       Filter, Inclusion, Not, Or, Range, Schema, TrueFilter,
@@ -15,12 +17,14 @@ from .search import (SearchConfig, favor_graph_search, graph_arrays,
                      rsf_graph_search)
 
 __all__ = [
-    "And", "AttributeTable", "BuildSpec", "ColumnSpec", "Equality",
+    "And", "AttributeTable", "BatchSpec", "BuildSpec", "ColumnSpec",
+    "Equality",
     "ExactScorer", "FalseFilter", "Filter", "FavorIndex", "HnswIndex",
     "HnswParams", "Inclusion", "LocalBackend", "Not", "Or", "PqAdcScorer",
     "QuantSpec",
     "Range", "RoutePlan", "Schema", "SearchConfig", "SearchOptions",
-    "SearchResult", "TrueFilter", "batch_signatures", "build_hnsw",
+    "SearchResult", "ShapeRegistry", "TrueFilter", "batching",
+    "batch_signatures", "build_hnsw",
     "compile_filter", "exclusion", "favor_graph_search",
     "filter_signature", "filters", "graph_arrays", "paper_filters",
     "paper_schema", "prefbf", "program_signature", "random_attributes",

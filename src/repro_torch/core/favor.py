@@ -15,6 +15,10 @@ codebook (k-means on the device) or an SQ quantizer -- or takes the
 compressed ADC scan (``SearchOptions.use_pq``) and the graph route can score
 on codes (``SearchOptions.graph_quant``).
 
+Live:    ``upsert`` / ``delete`` stream rows into a delta segment and
+          tombstones beside the static device arrays; ``merge`` folds them
+          into the graph (index.bulk) with positional ids kept.
+
 The online pipeline lives in router.execute; this class owns the offline
 state and exposes it through a LocalBackend.  Everything runs on the CUDA
 device unless the caller passes ``device="cpu"``; with no CUDA device the
@@ -26,6 +30,8 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -37,11 +43,25 @@ from .hnsw import HnswIndex, HnswParams, build_hnsw
 from .options import BuildSpec, QuantSpec, SearchOptions
 from .router import SearchResult, compile_programs, execute
 from .search import graph_topology
+from ..index.epochs import ComponentEpochs
+from ..index.live import LiveState
 
 __all__ = ["FavorIndex", "SearchResult", "resolve_device"]
 
-_LIVE = ("live mutation (upsert/delete/merge) comes with the live-index "
-         "slice of the port")
+
+@dataclass
+class _MergePrep:
+    """Everything ``merge_prepare`` built off the serving path, ready for an
+    atomic ``merge_commit`` swap.  ``graph_epoch`` guards staleness."""
+    from_slot: int
+    n_live: int
+    graph_epoch: int
+    index: HnswIndex
+    attrs: F.AttributeTable
+    chunk: int
+    pf: tuple       # padded (vectors, pristine norms, ints, floats)
+    codes: object
+    g: dict
 
 
 def resolve_device(device=None) -> torch.device:
@@ -73,9 +93,6 @@ class FavorIndex:
                  if isinstance(codebook, PQCodebook) else QuantSpec(kind="sq"))
             spec = BuildSpec(hnsw=spec.hnsw, selector=spec.selector,
                              prefbf_chunk=spec.prefbf_chunk, quant=q)
-        if index.n == 0:
-            raise ValueError("empty index: an index without base rows comes "
-                             "with the live-index slice of the port")
         self.spec = spec
         self.index = index
         self.attrs = attrs
@@ -90,20 +107,34 @@ class FavorIndex:
         self.sample_ints = torch.as_tensor(attrs.ints[samp], device=dev)
         self.sample_floats = torch.as_tensor(attrs.floats[samp], device=dev)
 
-        self.prefbf_chunk = min(spec.prefbf_chunk, max(256, index.n))
-        padded = prefbf.pad_db(index.vectors, index.norms.astype(np.float32),
-                               attrs.ints, attrs.floats, self.prefbf_chunk)
-        self._pf = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
-                         for a in padded)
-        # the graph route reads the first N rows of the padded scan arrays:
-        # one copy of the corpus on the device
-        n = index.n
-        pv, pn, pi, pf = self._pf
-        self.g = graph_topology(index, dev)
-        self.g.update({"vectors": pv[:n], "norms": pn[:n],
-                       "attrs_int": pi[:n], "attrs_float": pf[:n]})
-        self._quantize(spec.quant, codebook, codes, padded[0])
+        self.prefbf_chunk, self._pf, self.g = self._device_arrays(index,
+                                                                 attrs)
+        # pristine padded norms, kept so tombstones can be (re)masked onto
+        # the scan arrays
+        self._pn0 = self._pf[1]
+
+        # -- live mutation state (index subsystem) ----------------------------
+        self.epochs = ComponentEpochs()
+        self.live: LiveState | None = None
+        self._alive: np.ndarray | None = None   # base-row tombstone mask
+
+        self._quantize(spec.quant, codebook, codes, self._pf[0])
         self.backend = LocalBackend(self)
+
+    def _device_arrays(self, index: HnswIndex, attrs: F.AttributeTable):
+        """(scan chunk, padded scan arrays, graph dict) on the device.  The
+        graph route reads the first N rows of the padded scan arrays: one
+        copy of the corpus on the device."""
+        chunk = min(self.spec.prefbf_chunk, max(256, index.n))
+        padded = prefbf.pad_db(index.vectors, index.norms.astype(np.float32),
+                               attrs.ints, attrs.floats, chunk)
+        pf = tuple(torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+                   for a in padded)
+        n = index.n
+        g = graph_topology(index, self.device)
+        g.update({"vectors": pf[0][:n], "norms": pf[1][:n],
+                  "attrs_int": pf[2][:n], "attrs_float": pf[3][:n]})
+        return chunk, pf, g
 
     def _quantize(self, q, codebook, codes, padded_vectors) -> None:
         """Optional compressed-domain state: the codebook (trained here when
@@ -134,6 +165,11 @@ class FavorIndex:
                     f"spec.quant geometry (m={q.m}, nbits={q.nbits}) does not "
                     f"match the supplied codebook (m={codebook.m}, "
                     f"nbits={codebook.nbits})")
+        elif index.n == 0:
+            raise ValueError(
+                "cannot train a codebook on an empty index; pass codebook= "
+                "(or build unquantized and re-quantize after the first "
+                "merge)")
         elif q.kind == "pq":
             codebook = quant.train_pq(index.vectors, m=q.m, nbits=q.nbits,
                                       iters=q.train_iters,
@@ -155,12 +191,21 @@ class FavorIndex:
             self._codes = quant.encode(codebook, padded_vectors, device=dev)
         if q.kind == "pq":
             self._cb_dev = (torch.as_tensor(codebook.centroids, device=dev),)
-            self.g["centroids"] = self._cb_dev[0]
         else:
             self._cb_dev = (torch.as_tensor(codebook.lo, device=dev),
                             torch.as_tensor(codebook.scale, device=dev))
+        self._attach_scorer_arrays()
+
+    def _attach_scorer_arrays(self) -> None:
+        """Graph-route scorer arrays: code rows 0..N-1 of the padded
+        encoding align with the graph arrays."""
+        if self._codes is None:
+            return
+        self.g["codes"] = self._codes[:self.index.n]
+        if self.quantize == "pq":
+            self.g["centroids"] = self._cb_dev[0]
+        else:
             self.g["sq_lo"], self.g["sq_scale"] = self._cb_dev
-        self.g["codes"] = self._codes[:index.n]
 
     # -- construction --------------------------------------------------------
     @staticmethod
@@ -197,15 +242,163 @@ class FavorIndex:
         """Typed search API: one SearchOptions drives routing + execution."""
         return execute(self.backend, queries, filters, opts or SearchOptions())
 
-    # -- live mutation: a later slice -------------------------------------------
-    def upsert(self, *args, **kwargs):
-        raise NotImplementedError(_LIVE)
+    # -- live mutation API (index subsystem) ----------------------------------
+    def version(self) -> int:
+        """Aggregate data epoch: any component bump changes it."""
+        return self.epochs.total
 
-    def delete(self, *args, **kwargs):
-        raise NotImplementedError(_LIVE)
+    def versions(self) -> dict:
+        """Scoped epochs (vectors / attributes / graph)."""
+        return self.epochs.as_dict()
 
-    def merge(self, *args, **kwargs):
-        raise NotImplementedError(_LIVE)
+    def _ensure_live(self) -> LiveState:
+        if self.live is None:
+            self.live = LiveState(self.index.n, self.index.dim,
+                                  self.attrs.ints.shape[1],
+                                  self.attrs.floats.shape[1])
+        return self.live
+
+    def _masked_norms(self, pn0, alive: np.ndarray):
+        """Padded norms with +inf on the dead rows of ``alive`` (N,)."""
+        pad = int(pn0.shape[0]) - len(alive)
+        alive_pad = np.concatenate([alive, np.ones((pad,), bool)])
+        return torch.where(torch.as_tensor(alive_pad, device=self.device),
+                           pn0, float("inf"))
+
+    def _apply_tombstones(self, dead_rows: np.ndarray) -> None:
+        """Thread newly-dead base rows onto the device arrays: an ``alive``
+        key for the graph traversal and +inf norms for every brute scan.
+        Nothing else re-uploads -- vectors/neighbours/attrs stay put."""
+        if len(dead_rows) == 0:
+            return
+        alive = self.live.base_alive
+        self._alive = alive
+        self.g["alive"] = torch.as_tensor(alive, device=self.device)
+        self._pf = (self._pf[0], self._masked_norms(self._pn0, alive),
+                    self._pf[2], self._pf[3])
+
+    def upsert(self, vectors: np.ndarray, ints=None, floats=None, *,
+               replace=None) -> np.ndarray:
+        """Stream rows into the live delta; returns their ids (positional:
+        ``base_n + slot``).  ``replace=`` retires the named ids first (an
+        update is delete + fresh insert; the new ids are the handles)."""
+        live = self._ensure_live()
+        ids, dead = live.upsert(vectors, ints, floats, replace=replace)
+        self._apply_tombstones(dead)
+        self.epochs.bump("vectors")
+        return ids
+
+    def delete(self, ids) -> int:
+        """Tombstone ids (base rows or unmerged delta rows); returns how
+        many were found alive."""
+        live = self._ensure_live()
+        n, dead = live.delete(ids)
+        self._apply_tombstones(dead)
+        if n:
+            self.epochs.bump("vectors")
+        return n
+
+    def live_view(self):
+        return None if self.live is None else self.live.view()
+
+    def live_stats(self) -> dict:
+        if self.live is None:
+            return {"base_rows": self.index.n, "dead_base_rows": 0,
+                    "delta_rows": 0, "delta_slots": 0, "upserts": 0,
+                    "deletes": 0, "replaced": 0, "missing_deletes": 0}
+        return self.live.stats()
+
+    def merge_prepare(self, *, wave: int = 512) -> "_MergePrep | None":
+        """Phase 1 of a merge: snapshot the delta and run the expensive work
+        (bulk graph build with its candidate searches on the device,
+        attribute concat, scan-array padding, code re-encode with the
+        index's codebook, device upload) WITHOUT mutating any served state.
+
+        The snapshot boundary is ``cnt = delta.count`` read *before* any
+        array reference (append never rewrites rows below ``count`` and
+        ``_grow`` reallocates, so rows ``[:cnt]`` of whatever arrays are
+        then seen are stable).  Returns None when there is nothing to merge.
+        """
+        from ..index.bulk import bulk_add
+        live = self.live
+        if live is None or live.delta.count == 0:
+            return None
+        d = live.delta
+        cnt = int(d.count)       # snapshot boundary: read BEFORE array refs
+        index, attrs = self.index, self.attrs
+        vecs = d.vectors[:cnt].copy()
+        ints = d.ints[:cnt].copy()
+        flts = d.floats[:cnt].copy()
+        link = d.alive[:cnt].copy()
+        graph_epoch = self.epochs.graph
+        new_index = bulk_add(index, vecs, wave=wave, link=link,
+                             device=self.device)
+        new_attrs = F.AttributeTable(
+            self.schema,
+            np.concatenate([attrs.ints, ints]),
+            np.concatenate([attrs.floats, flts]))
+        chunk, pf, g = self._device_arrays(new_index, new_attrs)
+        codes = None
+        if self.codebook is not None:
+            from .. import quant
+            codes = quant.encode(self.codebook, pf[0], device=self.device)
+        return _MergePrep(
+            from_slot=cnt, n_live=int(link.sum()), graph_epoch=graph_epoch,
+            index=new_index, attrs=new_attrs, chunk=chunk, pf=pf,
+            codes=codes, g=g)
+
+    def merge_commit(self, prep: "_MergePrep") -> dict | None:
+        """Phase 2: atomic swap of the served state onto the prepared merge.
+
+        Mutations that landed since the snapshot are honoured: deletes
+        become tombstones on the fresh arrays, and delta slots past the
+        snapshot boundary carry into the new delta with their ids intact.
+        Returns None -- and changes nothing -- if the base graph was rebuilt
+        since the snapshot (the prepared state is then stale).
+        """
+        live = self.live
+        if live is None or self.epochs.graph != prep.graph_epoch:
+            return None
+        cnt = prep.from_slot
+        base = (live.base_alive if live.base_alive is not None
+                else np.ones((live.base_n,), bool))
+        alive = np.concatenate([base, live.delta.alive[:cnt]])
+        self._alive = None if alive.all() else alive
+        self.index = prep.index
+        self.attrs = prep.attrs
+        self.prefbf_chunk = prep.chunk
+        pv, self._pn0, pi, pf = prep.pf
+        pn = (self._pn0 if self._alive is None
+              else self._masked_norms(self._pn0, self._alive))
+        self._pf = (pv, pn, pi, pf)
+        self._codes = prep.codes
+        # vectors (membership) and graph (base arrays rebuilt) move;
+        # attributes deliberately do not -- the estimator sample is untouched
+        self.epochs.bump("vectors", "graph")
+        self.g = dict(prep.g)
+        self._attach_scorer_arrays()
+        if self._alive is not None:
+            self.g["alive"] = torch.as_tensor(self._alive, device=self.device)
+        live.reset_after_merge(prep.index.n, self._alive, from_slot=cnt)
+        return {"merged_slots": cnt, "merged_live": prep.n_live,
+                "n": prep.index.n}
+
+    def merge(self, *, wave: int = 512) -> dict:
+        """Fold the delta segment into the base HNSW and return to the
+        static fast path.
+
+        Every delta *slot* is appended in order -- dead slots ride along as
+        tombstoned, unlinked rows -- so surviving ids keep their positions.
+        The selectivity sample is left untouched.  Runs ``merge_prepare``
+        and ``merge_commit`` on this thread.
+        """
+        prep = self.merge_prepare(wave=wave)
+        if prep is None:
+            return {"merged_slots": 0, "merged_live": 0, "n": self.index.n}
+        out = self.merge_commit(prep)
+        if out is None:  # pragma: no cover - single-threaded epochs are stable
+            raise RuntimeError("merge_commit rejected a same-thread prepare")
+        return out
 
     # -- persistence -----------------------------------------------------------
     def _quant_payload(self) -> dict | None:
@@ -225,7 +418,14 @@ class FavorIndex:
     def save(self, path: str) -> None:
         """``path + ".hnsw.npz"`` (with ``quant_*`` keys when quantized),
         ``path + ".attrs.npz"`` and, when quantized, the codebook as
-        ``path + ".quant.npz"``: the JAX package's layout."""
+        ``path + ".quant.npz"``: the JAX package's layout.  Unmerged live
+        mutations are not persisted (a warning says so): ``merge`` first."""
+        if self.live is not None and (self.live.delta.count
+                                      or self.live.has_tombstones):
+            warnings.warn(
+                "FavorIndex.save: unmerged live mutations (delta rows or "
+                "tombstones) are not persisted -- call merge() first",
+                stacklevel=2)
         self.index.save(path + ".hnsw.npz", quant=self._quant_payload())
         np.savez_compressed(path + ".attrs.npz", ints=self.attrs.ints,
                             floats=self.attrs.floats,

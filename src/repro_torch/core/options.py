@@ -6,14 +6,13 @@
   SearchOptions -- per-query-batch online knobs (k/ef, routing force,
                    termination)
 
-All three validate eagerly in ``__post_init__``.  The one option of the
-JAX package that this port does not run yet -- bucketing (``batch``) --
-raises ``NotImplementedError`` instead of being ignored.
+All three validate eagerly in ``__post_init__``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
+from .batching import BatchSpec
 from .hnsw import HnswParams
 from .search import SearchConfig
 from .selector import SelectorConfig
@@ -83,6 +82,11 @@ class SearchOptions:
     "sq" score neighbour blocks on the index's codes of that kind and
     exact-re-rank the final top ``max(k, graph_rerank * k)`` TD candidates,
     capped at ef (``graph_rerank=None`` means 4).
+
+    ``batch`` is the shape-stable execution policy (core.batching): when
+    set, the router bucket-pads the estimate call and the graph/brute
+    sub-batches to the BatchSpec's power-of-two ladder; results are
+    bit-identical to ``batch=None``.
     """
     k: int = 10
     ef: int = 100
@@ -95,7 +99,7 @@ class SearchOptions:
     rerank: int | None = None
     graph_quant: str | None = None
     graph_rerank: int | None = None
-    batch: object = None
+    batch: BatchSpec | None = None
 
     def __post_init__(self):
         if self.force not in ROUTES:
@@ -120,10 +124,9 @@ class SearchOptions:
         if self.graph_rerank is not None and self.graph_rerank < 0:
             raise ValueError(f"SearchOptions.graph_rerank must be None or "
                              f">= 0, got {self.graph_rerank}")
-        if self.batch is not None:
-            raise NotImplementedError(
-                "SearchOptions.batch: bucketing (core/batching.py) comes in a "
-                "later slice of the port")
+        if self.batch is not None and not isinstance(self.batch, BatchSpec):
+            raise TypeError("SearchOptions.batch must be a BatchSpec or "
+                            f"None, got {self.batch!r}")
 
     def search_config(self) -> SearchConfig:
         """Lower to the config the traversal runs with."""

@@ -4,9 +4,11 @@
     -> backend.search_graph / backend.search_brute -> reassemble
 
 ``execute()`` is the single entry point; ``FavorIndex.query`` calls it with
-its ``LocalBackend``.  The JAX package's serving hooks on the same function
--- tenant ``scopes``, ``obs`` tracing, deferred finishing (``defer``) and the
-bucket ``registry`` -- come with the serving slice of the port and raise
+its ``LocalBackend``.  With ``SearchOptions.batch`` set it bucket-pads the
+estimate call and each route's sub-batch (core.batching) and records every
+shape into ``registry=`` when one is given.  The JAX package's serving hooks
+on the same function -- tenant ``scopes``, ``obs`` tracing and deferred
+finishing (``defer``) -- come with the serving slice of the port and raise
 ``NotImplementedError`` here.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import batching
 from . import filters as F
 from . import selector
 from .options import ROUTES, SearchOptions
@@ -105,9 +108,16 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
             registry=None, scopes=None, obs=None,
             defer: bool = False) -> SearchResult:
     """Run one filtered-ANNS batch through ``backend`` (paper Fig. 1 online
-    phase): estimate -> route -> per-route execution -> reassembly."""
-    for name, val in (("registry", registry), ("scopes", scopes),
-                      ("obs", obs)):
+    phase): estimate -> route -> per-route execution -> reassembly.
+
+    When ``opts.batch`` is a BatchSpec, the estimate call and each route
+    sub-batch are bucket-padded before they reach the backend: pad rows
+    carry an always-false filter program and a False entry in the ``valid``
+    mask the backend receives, and are stripped on reassembly, so results
+    are bit-identical to the unpadded path.  ``registry`` (a
+    batching.ShapeRegistry) records every entry-point shape and the pad
+    overhead paid."""
+    for name, val in (("scopes", scopes), ("obs", obs)):
         if val is not None:
             raise NotImplementedError(f"execute({name}=...) comes with the "
                                       "serving slice of the port")
@@ -131,7 +141,14 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
     path_td = np.zeros((b,), np.int64)
     waves = np.zeros((b,), np.int64)
 
-    p_hat = backend.estimate(programs).cpu().numpy()
+    spec = opts.batch
+    if spec is None:
+        batching.record(registry, "estimate", b, b)
+        p_hat = backend.estimate(programs).cpu().numpy()
+    else:
+        eprogs, evalid = batching.pad_programs(spec, programs)
+        batching.record(registry, "estimate", len(evalid), b)
+        p_hat = backend.estimate(eprogs, valid=evalid).cpu().numpy()[:b]
     plan = plan_routes(p_hat, backend.sel_cfg.lam, opts.force)
     gi, bi = plan.graph_idx, plan.brute_idx
     graph_out = brute_out = None
@@ -139,21 +156,36 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
         whole = len(gi) == b
         gq = queries if whole else queries[torch.as_tensor(gi, device=dev)]
         gprogs = programs if whole else take_programs(programs, gi)
-        gp = torch.as_tensor(plan.p_hat[gi], device=dev)
-        graph_out = backend.search_graph(gq, gprogs, gp, opts)
+        gp, gvalid = plan.p_hat[gi], None
+        if spec is not None:
+            gq, gprogs, gp, gvalid = batching.pad_to_bucket(spec, gq, gprogs,
+                                                            gp)
+        batching.record(registry, "graph", gq.shape[0], len(gi), opts)
+        graph_out = backend.search_graph(gq, gprogs,
+                                         torch.as_tensor(gp, device=dev),
+                                         opts, valid=gvalid)
     if len(bi):
         whole = len(bi) == b
         bq = queries if whole else queries[torch.as_tensor(bi, device=dev)]
         bprogs = programs if whole else take_programs(programs, bi)
-        brute_out = backend.search_brute(bq, bprogs, opts)
+        bvalid = None
+        if spec is not None:
+            bq, bprogs, _, bvalid = batching.pad_to_bucket(spec, bq, bprogs)
+        batching.record(registry, "brute", bq.shape[0], len(bi), opts)
+        brute_out = backend.search_brute(bq, bprogs, opts, valid=bvalid)
 
     if graph_out is not None:
+        if spec is not None:
+            graph_out = {k: batching.unpad(len(gi), v)
+                         for k, v in graph_out.items()}
         ids[gi] = graph_out["ids"].cpu().numpy()
         dists[gi] = graph_out["dists"].cpu().numpy()
         hops[gi] = graph_out["hops"].cpu().numpy()
         path_td[gi] = graph_out["path_td"].cpu().numpy()
         waves[gi] = graph_out["waves"].cpu().numpy()
     if brute_out is not None:
+        if spec is not None:
+            brute_out = batching.unpad(len(bi), *brute_out)
         ids[bi] = brute_out[0].cpu().numpy()
         dists[bi] = brute_out[1].cpu().numpy()
     # the .cpu() copies above waited for the device work

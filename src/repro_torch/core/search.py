@@ -18,6 +18,8 @@ The counterpart of the JAX package's ``core/search.py``:
    ``score_block`` call per block returns the exclusion distance (Eq. 2)
    and the TD bit of every gathered row.  The candidate pool C carries
    each entry's TD bit, so the expanded node's needs no second evaluation;
+ * a live index's tombstones (``g["alive"]``) make dead rows non-target:
+   they stay routable but are never returned;
  * quantized scorers get an exact f32 re-rank of the final top
    ``min(ef, max(k, graph_rerank * k))`` TD candidates
    (``quant.adc._exact_rerank``, the brute route's pass);
@@ -191,6 +193,15 @@ def _descend(g: dict, queries: torch.Tensor, scorer, sstate: dict):
     return cur
 
 
+def _gate_alive(key, td, alive, D):
+    """Tombstones as non-target rows: ``td &= alive``, and ``key + D`` where
+    the TD bit was set on a dead row.  A scorer returns dbar = d exactly for
+    TD rows, so this gives the bits of ``exclusion_compose(d, td & alive,
+    D)`` (the JAX package's gate)."""
+    dead = td & ~alive
+    return torch.where(dead, key + D, key), td & ~dead
+
+
 def _merge_pool(pool_d, pool_i, pool_t, new_d, new_i, new_t, cap: int):
     """Merge (B, cap) pools with (B, M) new entries, keep best ``cap``
     (stable: pool entries and lower columns win ties).  Ineligible new
@@ -216,12 +227,20 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
     ef, ccap = cfg.ef, cfg.ccap
     rows = torch.arange(b, device=dev)
 
+    # optional live-index tombstone mask (N,) bool: dead nodes stay routable
+    # (their edges still carry the walk) but are never target rows, so never
+    # admitted to R as results -- the key is absent until the first delete,
+    # so a static index runs exactly the ops it ran before
+    alive = g.get("alive")
+
     sstate = scorer.prepare(g, queries, programs)
     ep = _descend(g, queries, scorer, sstate)        # (B,)
 
     # --- init pools with the entry point -----------------------------------
     ep_key, ep_td = scorer.score_block(g, sstate, ep[:, None], D)
     ep_key, ep_td = ep_key[:, 0], ep_td[:, 0]        # rsf: D = 0 -> plain d
+    if alive is not None:
+        ep_key, ep_td = _gate_alive(ep_key, ep_td, alive[ep], D)
     seed_ok = ep_td if rsf else torch.ones_like(ep_td)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -289,6 +308,8 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
             visited = _visit_bits(s["visited"], lanes, safe, new)
 
             key, td = scorer.score_block(g, sstate, safe, D)  # Eq. 2
+            if alive is not None:
+                key, td = _gate_alive(key, td, alive[safe], D[:, None])
 
             # -- pool insertion (lines 15-24) --------------------------------
             worst_now = res_d.max(dim=1).values      # +inf when R not full

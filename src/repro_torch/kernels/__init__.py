@@ -9,6 +9,8 @@
                      pq_adc_gather: neighbour code-row ADC sums + filter
                      program + exclusion distance (the compressed graph
                      route, ``graph_quant="pq"``)
+  embedding_bag   -- per bag, the sum or mean of the table rows its ids
+                     name (the JAX package's public ``embedding_bag`` op)
 
 Each package's ``ops`` module holds the wrappers (the JAX package's ``ops``
 contract: -1 / +inf for missing results and the ``valid`` lane mask) and the
@@ -42,7 +44,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {"filtered_topk": "filtered_topk.cu",
            "gather_distance": "gather_distance.cu",
            "pq_adc_topr": "pq_adc.cu",
-           "pq_adc_gather": "pq_adc.cu"}
+           "pq_adc_gather": "pq_adc.cu",
+           "embedding_bag": "embedding_bag.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -74,6 +74,26 @@ def apply_missing(ids: torch.Tensor, dists: torch.Tensor, valid):
             torch.where(missing, torch.full_like(dists, float("inf")), dists))
 
 
+ROW_BLOCK = 8   # queries per GEMM in ``rows_mm``
+
+
+def rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` for a (B, d) and b (N, d) as one batched matmul of
+    (ROW_BLOCK, d) @ (d, N) products: ``a`` zero-padded to whole blocks,
+    ``b.T`` broadcast over the blocks (stride 0, not copied).  A BLAS picks
+    its kernel -- and so the summation order -- by the problem shape (a
+    single row goes to a GEMV on the CPU), so a row's dots would otherwise
+    depend on the batch width; bucket padding needs them not to.
+    """
+    rows = a.shape[0]
+    pad = (-rows) % ROW_BLOCK
+    if pad:
+        a = torch.cat([a, a.new_zeros((pad, a.shape[1]))])
+    blocks = a.reshape(-1, ROW_BLOCK, a.shape[1])
+    out = torch.bmm(blocks, b.T.expand(blocks.shape[0], -1, -1))
+    return out.reshape(-1, b.shape[0])[:rows]
+
+
 def no_tf32(device) -> None:
     """The plain versions' matmuls must be IEEE f32 on the card too."""
     if device.type == "cuda":

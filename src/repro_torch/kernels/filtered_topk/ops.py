@@ -109,9 +109,11 @@ def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
 def filtered_topk_plain(vectors, norms, ints, floats, queries, programs, *,
                         k: int = 10, dvec=None, exclude: bool = False,
                         valid=None, chunk: int = 8192):
-    """The kernel's function in plain torch: per DB chunk, a matmul for the
-    dots, the filter program, the mask or exclusion, then a stable sort of
-    [carried top-k, chunk] -- carried entries and lower ids win ties."""
+    """The kernel's function in plain torch: per DB chunk, matmuls of fixed
+    row count for the dots (``rows_mm``: a row's result does not depend on
+    the batch width), the filter program, the mask or exclusion, then a
+    stable sort of [carried top-k, chunk] -- carried entries and lower ids
+    win ties."""
     dev = queries.device
     C.no_tf32(dev)
     b = queries.shape[0]
@@ -123,7 +125,7 @@ def filtered_topk_plain(vectors, norms, ints, floats, queries, programs, *,
     best_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
     for s in range(0, n, chunk):
         v, vn = vectors[s:s + chunk], norms[s:s + chunk]
-        dot = queries @ v.T
+        dot = C.rows_mm(queries, v)
         dist = torch.sqrt(torch.clamp(vn[None, :] + qn[:, None] - 2.0 * dot,
                                       min=0.0))
         mask = F.eval_program_batched(programs, ints[s:s + chunk],

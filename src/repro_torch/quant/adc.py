@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core import filters as F
-from ..kernels._common import no_tf32
+from ..kernels._common import no_tf32, rows_mm
 from ..kernels.pq_adc import ops as pq_ops
 
 INF = float("inf")
@@ -29,9 +29,12 @@ def build_luts(centroids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
     centroids (M, K, dsub); queries (B, d) with d <= M * dsub -- the query is
     zero-padded on the feature tail exactly like the encoded vectors.
-    Returns (B, M, K) float32.
+    Returns (B, M, K) float32.  The dots are dsub elementwise multiply-adds
+    in subspace-coordinate order, each rounded on its own: a query's table
+    does not depend on the batch width (a batched GEMM picks its kernel,
+    and so its summation order, by shape), bucket padding relies on that,
+    and no (B, M, K, dsub) product is held.
     """
-    no_tf32(queries.device)
     m, _, dsub = centroids.shape
     b, d = queries.shape
     pad = m * dsub - d
@@ -40,7 +43,9 @@ def build_luts(centroids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     qs = queries.reshape(b, m, dsub)
     qn = (qs * qs).sum(dim=-1)                     # (B, M)
     cn = (centroids * centroids).sum(dim=-1)       # (M, K)
-    dot = torch.einsum("bmd,mkd->bmk", qs, centroids)
+    dot = qs[:, :, None, 0] * centroids[None, :, :, 0]
+    for j in range(1, dsub):
+        dot = dot + qs[:, :, None, j] * centroids[None, :, :, j]
     return torch.clamp(qn[:, :, None] + cn[None, :, :] - 2.0 * dot, min=0.0)
 
 
@@ -98,8 +103,9 @@ def _merge_topr(best_d, best_i, tile_d, tile_i, r: int):
 def sq_prefbf_topk(codes, lo, scale, norms, ints, floats, queries, programs,
                    vectors, *, k: int, rerank: int = 4, chunk: int = 8192,
                    valid=None):
-    """Scalar-quantization fallback scan: per-chunk dequantize + matmul,
-    then the same exact re-rank as the PQ path.  codes (N, d) uint8;
+    """Scalar-quantization fallback scan: per-chunk dequantize + matmuls of
+    fixed row count (``rows_mm``), then the same exact re-rank as the PQ
+    path.  codes (N, d) uint8;
     ``valid`` the optional (B,) bool query mask."""
     no_tf32(queries.device)
     r = max(k, rerank * k)
@@ -112,8 +118,8 @@ def sq_prefbf_topk(codes, lo, scale, norms, ints, floats, queries, programs,
     for s in range(0, n, chunk):
         deq = codes[s:s + chunk].to(torch.float32) * scale[None, :] + lo[None, :]
         dn = (deq * deq).sum(dim=-1)
-        d2 = torch.clamp(dn[None, :] + qn[:, None] - 2.0 * (queries @ deq.T),
-                         min=0.0)
+        d2 = torch.clamp(dn[None, :] + qn[:, None]
+                         - 2.0 * rows_mm(queries, deq), min=0.0)
         mask = F.eval_program_batched(programs, ints[s:s + chunk],
                                       floats[s:s + chunk])
         ok = mask & torch.isfinite(norms[s:s + chunk])[None, :]

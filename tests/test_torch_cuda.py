@@ -8,7 +8,8 @@ Bar: distances rtol/atol 1e-5, ids equal outside ties, TD bits equal.  The
 f32 kernels' d-long dot is one FMA chain and the plain version's a cuBLAS
 or tree reduction, so the two differ only in the last bits of the squared
 distance; the PQ kernels and their plain versions add the same LUT entries
-in the same subspace order, so they agree bit for bit."""
+in the same subspace order, and ``embedding_bag`` and its plain version the
+same rows in the same bag order, so they agree bit for bit."""
 import numpy as np
 import pytest
 
@@ -18,6 +19,7 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import filters as PF  # noqa: E402
 from repro_torch.core import prefbf  # noqa: E402
 from repro_torch.core.router import compile_programs  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as eb  # noqa: E402
 from repro_torch.kernels.filtered_topk import ops as ft  # noqa: E402
 from repro_torch.kernels.gather_distance import ops as gd  # noqa: E402
 from repro_torch.kernels.pq_adc import ops as pq  # noqa: E402
@@ -252,3 +254,136 @@ def test_pq_wrappers_reject_bad_inputs(dev):
                          torch.zeros((4, 3), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="expected cuda"):
         pq.pq_adc_gather(codes, luts, torch.zeros((4, 3), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("v,d,b,l", [(100000, 64, 4096, 32), (257, 6, 33, 7),
+                                     (50, 8, 16, 1)])
+def test_embedding_bag_kernel_matches_plain(dev, v, d, b, l, mode):
+    rng = np.random.default_rng(v + l)
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32),
+                            device=dev)
+    bags = rng.integers(0, v, size=(b, l)).astype(np.int32)
+    for i in range(b):
+        bags[i, rng.integers(0, l + 1):] = -1     # all-pad bags included
+    bags = torch.as_tensor(bags, device=dev)
+    before = K.launch_counts["embedding_bag"]
+    got = eb.embedding_bag(table, bags, mode=mode)
+    torch.cuda.synchronize()
+    assert K.launch_counts["embedding_bag"] == before + 1
+    want = eb.embedding_bag_plain(table, bags, mode=mode)
+    assert torch.equal(got, want)
+    assert torch.equal(got[(bags < 0).all(dim=1)],
+                       torch.zeros_like(got[(bags < 0).all(dim=1)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sub", [(300, [0, 5, 7, 299]), (37, [36]),
+                                   (9, [0, 1, 2, 3, 4, 5, 6, 7, 8])])
+def test_kernels_bits_do_not_depend_on_tile_mates(dev, b, sub):
+    """Bucket padding's bar on the card: a query's ids and distances are the
+    same bits whichever lanes share its tile (four queries per thread in
+    ``filtered_topk``, three-query tiles in ``pq_adc_topr``) and whatever
+    pad lanes ride beside it."""
+    from repro_torch.core.batching import BatchSpec, pad_to_bucket
+    db, qs, progs, rng = _case(dev, 5000, 128, b, seed=b, pad_to=8192)
+    idx = torch.as_tensor(sub, device=dev)
+    sq = qs[idx].contiguous()
+    sprogs = {k: v[idx].contiguous() for k, v in progs.items()}
+    pq_, pp, _, valid = pad_to_bucket(BatchSpec(4, 512), sq, sprogs)
+    codes = torch.as_tensor(rng.integers(0, 256, size=(db[0].shape[0], 32),
+                                         dtype=np.uint8), device=dev)
+    luts = torch.as_tensor(rng.uniform(0, 4, size=(b, 32, 256)).astype(
+        np.float32), device=dev)
+    slut = luts[idx].contiguous()
+    plut = torch.cat([slut, slut.new_zeros((len(valid) - len(sub), 32,
+                                            256))])
+    for full, part, padded in (
+            (ft.filtered_topk(*db, qs, progs, k=10),
+             ft.filtered_topk(*db, sq, sprogs, k=10),
+             ft.filtered_topk(*db, pq_, pp, k=10, valid=valid)),
+            (pq.pq_adc_topr(codes, *db[1:], luts, progs, r=40),
+             pq.pq_adc_topr(codes, *db[1:], slut, sprogs, r=40),
+             pq.pq_adc_topr(codes, *db[1:], plut, pp, r=40, valid=valid))):
+        for got in (part, padded):
+            assert torch.equal(got[0][:len(sub)], full[0][idx])
+            assert torch.equal(got[1][:len(sub)], full[1][idx])
+        assert (padded[0][len(sub):] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 3, 8, 200, 1024])
+def test_plain_dots_do_not_depend_on_batch_width(dev, width):
+    """``rows_mm`` (the SQ scan's and the plain brute version's dots) and
+    ``build_luts`` on the card: a query's bits are the same in a batch of
+    any width, and ``rows_mm`` broadcasts its right operand without
+    copying it per block."""
+    from repro_torch.kernels._common import rows_mm
+    from repro_torch.quant.adc import build_luts
+    rng = np.random.default_rng(width)
+    qs = torch.as_tensor(rng.normal(size=(1024, 128)).astype(np.float32),
+                         device=dev)
+    db = torch.as_tensor(rng.normal(size=(8192, 128)).astype(np.float32),
+                         device=dev)
+    cents = torch.as_tensor(rng.normal(size=(32, 256, 4)).astype(np.float32),
+                            device=dev)
+    lo = int(rng.integers(0, 1025 - width))
+    part = qs[lo:lo + width]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    full = rows_mm(qs, db)
+    torch.cuda.synchronize()
+    out_bytes = full.numel() * 4
+    assert torch.cuda.max_memory_allocated(dev) - base < 2 * out_bytes
+    assert torch.equal(rows_mm(part, db), full[lo:lo + width])
+    assert torch.equal(build_luts(cents, part),
+                       build_luts(cents, qs)[lo:lo + width])
+
+
+@pytest.mark.cuda
+def test_bucketing_and_live_index_on_card(dev):
+    """End to end on the card at a small size: bucketed == unbucketed bit
+    for bit on both routes, and the live index (delta scan on
+    ``filtered_topk``, tombstones, the bulk merge's waves) never returns a
+    deleted id and finds every upserted row under its positional id."""
+    from repro_torch.core import BatchSpec, FavorIndex, HnswParams
+    from repro_torch.core import SearchOptions
+    rng = np.random.default_rng(5)
+    n, d = 2000, 16
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    schema = PF.paper_schema()
+    attrs = PF.random_attributes(schema, n, seed=6)
+    fi = FavorIndex.build(vecs, attrs, HnswParams(M=8, efc=48, seed=3))
+    assert fi.device.type == "cuda"
+    pool = [PF.Equality("b0", True), PF.Range("f0", 10.0, 60.0),
+            PF.And(PF.Equality("i0", 3), PF.Range("f0", 10, 12))]
+    qs = rng.normal(size=(37, d)).astype(np.float32)
+    flts = [pool[i % 3] for i in range(37)]
+    opts = SearchOptions(k=10, ef=64)
+    a = fi.query(qs, flts, opts)
+    b = fi.query(qs, flts, opts.with_(batch=BatchSpec(4, 64)))
+    assert a.routed_brute.any() and (~a.routed_brute).any()
+    assert np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)
+
+    new = qs[:8] + 1e-3
+    ids = fi.upsert(new, attrs.ints[:8], attrs.floats[:8],
+                    replace=list(range(8)))
+    assert ids.tolist() == list(range(n, n + 8))
+    assert fi.delete([int(ids[0]), 9, 10]) == 3
+    dead = [0, 1, 2, 3, 4, 5, 6, 7, 9, 10, int(ids[0])]
+    before = dict(K.launch_counts)
+    for force in ("graph", "brute"):
+        r = fi.query(qs, flts, opts.with_(force=force))
+        assert not np.isin(r.ids, dead).any(), force
+        own = fi.query(new[1:], PF.TrueFilter(), opts.with_(force=force))
+        assert (own.ids[:, 0] == ids[1:]).all(), force
+    assert K.launch_counts["filtered_topk"] > before["filtered_topk"] + 2
+    fi.merge(wave=64)
+    assert fi.index.n == n + 8 and "alive" in fi.g
+    for force in ("graph", "brute"):
+        r = fi.query(qs, flts, opts.with_(force=force))
+        assert not np.isin(r.ids, dead).any(), force
+        own = fi.query(new[1:], PF.TrueFilter(), opts.with_(force=force))
+        assert (own.ids[:, 0] == ids[1:]).all(), force

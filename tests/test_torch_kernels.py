@@ -1,5 +1,6 @@
-"""Port parity, kernels: the plain versions of ``filtered_topk`` and
-``gather_distance`` (what a wrapper runs on CPU tensors) against the JAX
+"""Port parity, kernels: the plain versions of ``filtered_topk``,
+``gather_distance`` and ``embedding_bag`` (what a wrapper runs on CPU
+tensors) against the JAX
 package's Pallas kernels in interpret mode and its jnp paths, at the
 reference's own bar (``tests/test_kernels.py``): distances rtol/atol 1e-5,
 ids equal wherever the reference's neighbouring distances differ by more.
@@ -14,12 +15,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import filters as RF  # noqa: E402
 from repro.core import prefbf as r_prefbf  # noqa: E402
+from repro.kernels.embedding_bag import ops as r_eb  # noqa: E402
+from repro.kernels.embedding_bag import ref as r_eb_ref  # noqa: E402
 from repro.kernels.filtered_topk import ops as r_ft  # noqa: E402
 from repro.kernels.gather_distance import ops as r_gd  # noqa: E402
 from repro.kernels.gather_distance import ref as r_gd_ref  # noqa: E402
 from repro_torch.core import filters as PF  # noqa: E402
 from repro_torch.core import prefbf as p_prefbf  # noqa: E402
 from repro_torch.core.router import compile_programs  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as p_eb  # noqa: E402
 from repro_torch.kernels.filtered_topk import ops as p_ft  # noqa: E402
 from repro_torch.kernels.gather_distance import ops as p_gd  # noqa: E402
 from repro_torch.parity import topk_mismatch  # noqa: E402
@@ -204,3 +208,66 @@ def test_gather_distance_plain_matches_pallas(n, d, b, m):
     assert torch.isinf(pd[-1]).all() and not ptd[-1].any()
     np.testing.assert_allclose(pd.numpy(), np.asarray(rd), rtol=TOL, atol=TOL)
     np.testing.assert_array_equal(ptd.numpy(), np.asarray(rtd))
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag: the cases of tests/test_kernels.py's sweep
+# ---------------------------------------------------------------------------
+def _bag_case(v, d, b, l):
+    """Table and bags drawn as ``test_embedding_bag_sweep`` draws them."""
+    rng = np.random.default_rng(v + l)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    bags = rng.integers(0, v, size=(b, l)).astype(np.int32)
+    for i in range(b):
+        bags[i, rng.integers(1, l + 1):] = -1     # random -1 padding tail
+    return table, bags
+
+
+EB_CASES = [(100, 16, 8, 4, "sum"), (100, 16, 8, 4, "mean"),
+            (1000, 32, 4, 10, "sum"), (50, 8, 16, 1, "mean"),
+            (257, 64, 3, 7, "sum")]
+
+
+@pytest.mark.parametrize("v,d,b,l,mode", EB_CASES)
+def test_embedding_bag_plain_matches_pallas(v, d, b, l, mode):
+    """Bit for bit against the Pallas kernel in interpret mode, and at the
+    reference's 1e-5 against its jnp oracle (``jnp.sum`` adds in another
+    order)."""
+    table, bags = _bag_case(v, d, b, l)
+    pal = np.asarray(r_eb.embedding_bag(jnp.asarray(table), jnp.asarray(bags),
+                                        mode=mode, interpret=True))
+    got = p_eb.embedding_bag(torch.as_tensor(table), torch.as_tensor(bags),
+                             mode=mode).numpy()
+    np.testing.assert_array_equal(got, pal)
+    ref = np.asarray(r_eb_ref.embedding_bag_ref(jnp.asarray(bags),
+                                                jnp.asarray(table), mode=mode))
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_all_padding(mode):
+    table = np.ones((10, 4), np.float32)
+    bags = np.full((2, 3), -1, np.int32)
+    pal = np.asarray(r_eb.embedding_bag(jnp.asarray(table), jnp.asarray(bags),
+                                        mode=mode, interpret=True))
+    got = p_eb.embedding_bag(torch.as_tensor(table), torch.as_tensor(bags),
+                             mode=mode).numpy()
+    np.testing.assert_array_equal(got, pal)
+    np.testing.assert_array_equal(got, 0.0)
+
+
+def test_embedding_bag_input_checks():
+    table = torch.zeros((10, 4))
+    bags = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="mode"):
+        p_eb.embedding_bag(table, bags, mode="max")
+    with pytest.raises(ValueError, match="dtype"):
+        p_eb.embedding_bag(table, bags.long())
+    with pytest.raises(ValueError, match="dtype"):
+        p_eb.embedding_bag(table.double(), bags)
+    with pytest.raises(ValueError, match="shape"):
+        p_eb.embedding_bag(table, bags[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        p_eb.embedding_bag(torch.zeros((4, 10)).t(), bags)
+    with pytest.raises(ValueError, match="expected"):
+        p_eb.embedding_bag(table, bags.to("meta"))

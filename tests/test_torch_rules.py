@@ -16,6 +16,7 @@ from repro_torch.core import BuildSpec, QuantSpec  # noqa: E402
 from repro_torch.core import filters as PF  # noqa: E402
 from repro_torch.core.router import compile_programs  # noqa: E402
 from repro_torch.kernels import _common  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as eb  # noqa: E402
 from repro_torch.kernels.filtered_topk import ops as ft  # noqa: E402
 from repro_torch.kernels.gather_distance import ops as gd  # noqa: E402
 from repro_torch.kernels.pq_adc import ops as pq  # noqa: E402
@@ -120,6 +121,8 @@ def test_wrappers_raise_on_cuda_request_without_device(monkeypatch):
                         lambda *a, **k: calls.append("topr"))
     monkeypatch.setattr(pq, "pq_adc_gather_plain",
                         lambda *a, **k: calls.append("pqg"))
+    monkeypatch.setattr(eb, "embedding_bag_plain",
+                        lambda *a, **k: calls.append("eb"))
     db, qs, progs = _kernel_args()
     before = dict(K.launch_counts)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -132,6 +135,8 @@ def test_wrappers_raise_on_cuda_request_without_device(monkeypatch):
         pq.pq_adc_topr(codes, db[1], db[2], db[3], luts, progs, r=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pq.pq_adc_gather(codes, luts, ids)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eb.embedding_bag(db[0], ids)
     assert calls == [] and K.launch_counts == before
 
 
@@ -149,26 +154,35 @@ def test_wrappers_on_cpu_run_plain_version_without_counting():
     d, td = pq.pq_adc_gather(codes, luts, nb, ints=db[2], floats=db[3],
                              programs=progs, dvec=torch.zeros(3))
     assert torch.isinf(d[:, 2]).all() and td[:, :2].all()
+    out = eb.embedding_bag(db[0], nb, mode="mean")
+    assert torch.equal(out[0], (db[0][0] + db[0][5]) / 2)
     assert K.launch_counts == before
 
 
 def test_unported_options_raise():
-    # the compressed routes are ported: their options construct
+    # the compressed routes, bucketing and the live index are ported: their
+    # options construct and their entry points run
+    from repro_torch.core import BatchSpec
+    from repro_torch.core.batching import ShapeRegistry
     SearchOptions(use_pq=True, rerank=2)
     SearchOptions(graph_quant="pq", graph_rerank=2)
     BuildSpec(quant=QuantSpec())
+    opts = SearchOptions(batch=BatchSpec(min_bucket=2, max_bucket=4))
     with pytest.raises(ValueError):
         SearchOptions(graph_quant="bogus")
-    with pytest.raises(NotImplementedError, match="bucketing"):
+    with pytest.raises(TypeError, match="BatchSpec"):
         SearchOptions(batch=object())
     vecs, attrs = _tiny()
     fi = FavorIndex.build(vecs, attrs, HnswParams(M=4, efc=16), device="cpu")
-    for op in (fi.upsert, fi.delete, fi.merge):
-        with pytest.raises(NotImplementedError, match="live-index"):
-            op()
+    ids = fi.upsert(vecs[:2] + 1e-3, attrs.ints[:2], attrs.floats[:2])
+    assert ids.tolist() == [64, 65] and fi.delete([0, 65]) == 2
+    assert fi.merge()["merged_slots"] == 2 and fi.index.n == 66
     from repro_torch.core.router import execute
-    for kw in ({"scopes": np.zeros(2)}, {"obs": object()},
-               {"registry": object()}, {"defer": True}):
+    reg = ShapeRegistry()
+    r = execute(fi.backend, vecs[:3], PF.TrueFilter(), opts, registry=reg)
+    assert 0 not in r.ids and 65 not in r.ids and reg.compiled_shapes
+    # the serving slice's hooks still raise
+    for kw in ({"scopes": np.zeros(2)}, {"obs": object()}, {"defer": True}):
         with pytest.raises(NotImplementedError, match="serving"):
             execute(fi.backend, vecs[:2], PF.TrueFilter(), SearchOptions(),
                     **kw)
