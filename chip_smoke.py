@@ -12,7 +12,11 @@ no result):
            d = 128 f32 (favor-anns' 64M rows over its 16 model shards) with
            the paper schema's attributes and favor-anns' PQ codes (M = 32
            subspaces of K = 256 centroids), 1024 queries -- held against its
-           plain PyTorch version and timed with CUDA events beside its bound;
+           plain PyTorch version and timed with CUDA events beside its bound
+           (filtered_topk on the whole batch in both modes, with its TF32
+           screen's candidates per query by scenario and the screen's own
+           bound; filtered_topk at k = 100 and pq_adc_topr at R = 1600,
+           chained passes, on a 64-query subset);
   serve    FavorIndex.build on a synthetic paper dataset (HNSW M=16, host
            build) with favor-anns' QuantSpec (PQ m=32, nbits=8, rerank=8;
            the codebook trained on the card), then FavorIndex.query for
@@ -57,14 +61,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published rates of the H100 (NVIDIA data sheet, dense, at the full power
-# limit), used for the bound of each kernel: f32 outside the tensor cores.
-RATES = {"SXM": {"hbm_bytes_per_s": 3.35e12, "f32_flops": 67e12},
-         "PCIe": {"hbm_bytes_per_s": 2.0e12, "f32_flops": 51e12}}
+# limit), used for the bound of each kernel: f32 outside the tensor cores;
+# TF32 on them for the bound of filtered_topk's screen.
+RATES = {"SXM": {"hbm_bytes_per_s": 3.35e12, "f32_flops": 67e12,
+                 "tf32_flops": 495e12},
+         "PCIe": {"hbm_bytes_per_s": 2.0e12, "f32_flops": 51e12,
+                  "tf32_flops": 378e12}}
 # kernel vs plain version: the kernel's 128-term dot is one FMA chain, the
 # plain version's a cuBLAS / tree reduction, so distances differ in the last
 # f32 bits of the squared form; ids must agree wherever distances are apart
 RTOL = ATOL = 1e-5
 K, EF, M0 = 10, 128, 32
+K_LONG, R_LONG, LONG_SUB = 100, 1600, 64   # chained-pass checks (subset)
 PQ_M, PQ_BITS, RERANK = 32, 8, 8   # favor-anns' QuantSpec
 # recall bars of the compressed routes, two points as in the JAX package's
 # own (tests/test_quant.py, tests/test_scoring.py): the compressed brute
@@ -196,36 +204,68 @@ def phase_kernels(dev, rates):
     del vecs, padded
     qs = torch.as_tensor(rng.standard_normal((b, d), dtype=np.float32),
                          device=dev)
-    flts, _ = mixed_filters(F, schema, b)
+    flts, scen = mixed_filters(F, schema, b)
     progs = compile_programs(flts, schema, b, device=dev)
     dvec = torch.as_tensor(rng.uniform(0.5, 3.0, size=b).astype(np.float32),
                            device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     mi, mf = attrs.ints.shape[1], attrs.floats.shape[1]
-    rates_used = {"hbm_bytes_per_s": rates["hbm_bytes_per_s"],
-                  "f32_flops": rates["f32_flops"]}
+    rates_used = dict(rates)
 
     # -- filtered_topk: PreFBF mode through prefbf_topk (the brute route),
-    #    and exclusion mode; compared on a 64-query subset ----------------
+    #    and exclusion mode, each on the whole batch (the timed grid); then
+    #    k = K_LONG (chained passes) on a subset; the screen's candidates ----
     out = {}
-    sub = slice(0, 64)
-    sub_progs = {k: v[sub].contiguous() for k, v in progs.items()}
     errs = []
     for mode, exclude in (("prefbf", False), ("exclusion", True)):
-        kid, kd = ft.filtered_topk(pv, pn, pi, pf, qs[sub].contiguous(),
-                                   sub_progs, k=K, dvec=dvec[sub].contiguous(),
+        kid, kd = ft.filtered_topk(pv, pn, pi, pf, qs, progs, k=K, dvec=dvec,
                                    exclude=exclude)
-        pid, pd = ft.filtered_topk_plain(pv, pn, pi, pf, qs[sub], sub_progs,
-                                         k=K, dvec=dvec[sub], exclude=exclude)
+        pid, pd = ft.filtered_topk_plain(pv, pn, pi, pf, qs, progs, k=K,
+                                         dvec=dvec, exclude=exclude)
         m = topk_mismatch(pid.cpu().numpy(), pd.cpu().numpy(),
                           kid.cpu().numpy(), kd.cpu().numpy(), RTOL, ATOL)
         check(m["dist_mismatch"] == 0 and m["id_mismatch"] == 0,
               f"filtered_topk ({mode}) vs plain: {m}")
-        if not exclude:
-            check(int(kid.max()) < n, "filtered_topk returned a pad row")
+        check(int(kid.max()) < n, "filtered_topk returned a pad row")
         errs.append(m["max_abs_diff"])
         out[mode] = m
+    sub = slice(0, LONG_SUB)
+    sub_args = (qs[sub].clone(), {k: v[sub].clone() for k, v in progs.items()})
+    kid, kd = ft.filtered_topk(pv, pn, pi, pf, *sub_args, k=K_LONG)
+    pid, pd = ft.filtered_topk_plain(pv, pn, pi, pf, *sub_args, k=K_LONG)
+    m = topk_mismatch(pid.cpu().numpy(), pd.cpu().numpy(), kid.cpu().numpy(),
+                      kd.cpu().numpy(), RTOL, ATOL)
+    check(m["dist_mismatch"] == 0 and m["id_mismatch"] == 0,
+          f"filtered_topk (k={K_LONG}, chained) vs plain: {m}")
+    errs.append(m["max_abs_diff"])
+    out[f"prefbf_k{K_LONG}_first{LONG_SUB}"] = m
+    # each of the grid's DB splits admits its first k rows (its threshold
+    # starts at BIG), and no pair is screened twice
+    lib = Kn.library("filtered_topk")
+    splits = ft._splits(b, pv.shape[0], torch.cuda.get_device_properties(
+        dev).multi_processor_count, lib.filtered_topk_query_tile(),
+        lib.filtered_topk_tile_rows())
+    cands, rescored = {}, {}
+    names = np.asarray(scen)
+    for mode, exclude in (("prefbf", False), ("exclusion", True)):
+        counts = torch.zeros(b, dtype=torch.int32, device=dev)
+        exact = torch.zeros(b, dtype=torch.int32, device=dev)
+        ft.filtered_topk(pv, pn, pi, pf, qs, progs, k=K, dvec=dvec,
+                         exclude=exclude, screen_counts=counts,
+                         rescore_counts=exact)
+        per, per_x = counts.cpu().numpy(), exact.cpu().numpy()
+        check(int(per.min()) >= K * splits and int(per.max()) <= n,
+              f"filtered_topk ({mode}): screen counts {int(per.min())}.."
+              f"{int(per.max())} outside [k x {splits} splits, {n} rows]")
+        check(int(per_x.min()) >= K and bool((per_x <= per).all()),
+              f"filtered_topk ({mode}): exact re-scores {int(per_x.min())}"
+              f"..{int(per_x.max())}: fewer than k, or above the screen's")
+        for out_, v in ((cands, per), (rescored, per_x)):
+            out_[mode] = {s: float(v[names == s].mean())
+                          for s in dict.fromkeys(scen)}
+            out_[mode]["all"] = float(v.mean())
+            out_[mode]["total"] = int(v.sum())
     ms = cuda_ms(lambda: prefbf.prefbf_topk(pv, pn, pi, pf, qs, progs, k=K,
                                             chunk=8192),
                  repeats=REPEATS)
@@ -238,18 +278,34 @@ def phase_kernels(dev, rates):
     row_bytes = 4 * (d + 1 + mi + mf)
     prog_bytes = sum(v.numel() * v.element_size() for v in progs.values())
     ft_bytes = n * row_bytes + b * d * 4 + prog_bytes + b * K * 8
+    # the design's own bound: every pair's dot on the TF32 tensor cores,
+    # then this run's exact re-scores (one d-long f32 dot each); beside it
+    # every pair's dot in f32 (the all-f32 design's bound) and the
+    # screen alone
     ft_ops = 2 * b * n * d
-    ft_bound = 1e3 * max(ft_bytes / rates["hbm_bytes_per_s"],
-                         ft_ops / rates["f32_flops"])
+    bytes_s = ft_bytes / rates["hbm_bytes_per_s"]
+
+    def ft_ops_s(mode):
+        return (ft_ops / rates["tf32_flops"]
+                + 2 * d * rescored[mode]["total"] / rates["f32_flops"])
+    ft_bound = 1e3 * max(bytes_s, ft_ops_s("prefbf"))
+    ft_bound_excl = 1e3 * max(bytes_s, ft_ops_s("exclusion"))
+    ft_bound_f32 = 1e3 * max(bytes_s, ft_ops / rates["f32_flops"])
+    ft_bound_tf32 = 1e3 * max(bytes_s, ft_ops / rates["tf32_flops"])
     kernels = {"filtered_topk": {
         "name": "filtered_topk", "route": "cuda",
         "source": "src/repro_torch/csrc/filtered_topk.cu",
         "replaces": "src/repro/kernels/filtered_topk/kernel.py:109",
         "max_abs_err": max(errs), "ms": ms, "ms_exclusion": ms_excl,
         "plain_ms": plain_ms, "bound_ms": ft_bound,
-        "bound_by": ("operations" if ft_ops / rates["f32_flops"]
-                     >= ft_bytes / rates["hbm_bytes_per_s"] else "bytes"),
+        "bound_by": "operations" if ft_ops_s("prefbf") >= bytes_s else "bytes",
+        "bound_ms_exclusion": ft_bound_excl,
+        "bound_ms_f32_all_pairs": ft_bound_f32,
+        "bound_ms_tf32_screen": ft_bound_tf32,
         "library_ms": None,
+        "screen_candidates_per_query": cands,
+        "exact_rescores_per_query": rescored,
+        "splits": splits,
         "shape": {"B": b, "N": n, "d": d, "k": K, "m_i": mi, "m_f": mf,
                   "W": int(progs["valid"].shape[1])},
     }}
@@ -348,6 +404,13 @@ def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
     check(m["dist_mismatch"] == 0 and m["id_mismatch"] == 0,
           f"pq_adc_topr vs plain: {m}")
     check(int(kid.max()) < n, "pq_adc_topr returned a pad row")
+    # R above the kernel's longest list: chained passes, on a subset
+    sub = slice(0, LONG_SUB)
+    sub_args = (luts[sub].clone(), {k: v[sub].clone() for k, v in progs.items()})
+    lid, ld = pq.pq_adc_topr(codes, pn, pi, pf, *sub_args, r=R_LONG)
+    qid, qd = pq.pq_adc_topr_plain(codes, pn, pi, pf, *sub_args, r=R_LONG)
+    check(bool(torch.equal(lid, qid) and torch.equal(ld, qd)),
+          f"pq_adc_topr (r={R_LONG}, chained) vs plain: not bit-identical")
     ms = cuda_ms(lambda: pq.pq_adc_topr(codes, pn, pi, pf, luts, progs, r=r),
                  repeats=REPEATS)
     plain_ms = cuda_ms(lambda: pq.pq_adc_topr_plain(codes, pn, pi, pf, luts,
@@ -367,6 +430,7 @@ def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
                      >= topr_bytes / rates["hbm_bytes_per_s"] else "bytes"),
         "library_ms": None,
         "compared_rows": rows, "identical_rows": m["identical_rows"],
+        f"r{R_LONG}_first{LONG_SUB}_bit_identical": True,
         "shape": {"B": b, "N": n, "M": PQ_M, "K": ksub, "R": r,
                   "lut": "f32"},
     }
@@ -965,6 +1029,9 @@ def main() -> int:
                     for k, v in logs.items()}})
 
     kernels = phase_kernels(dev, rates)
+    kernels["filtered_topk"]["ptxas"] = [
+        ln.strip() for ln in logs.get("filtered_topk.cu", "").splitlines()
+        if "registers" in ln or "spill" in ln]
     kernels["embedding_bag"] = phase_embedding_bag(dev, rates)
     launches = phase_serve(dev)
     # each kernel's launches on the pass of the main path that runs it

@@ -22,7 +22,11 @@
 //  * one block per (query tile of QT queries, DB split); the tile's LUTs
 //    are staged in shared memory as f32 (bf16 tables are widened on the
 //    way), QT*M*K*4 bytes -- 32 KB a query at favor-anns widths, so the
-//    wrapper picks QT for two blocks per SM (QT = 3 there);
+//    wrapper picks QT for two blocks per SM (QT = 3 there).  When one
+//    query's table does not fit beside its list (f32 at K = 256 and
+//    M >~ 220) the wrapper hands f32 tables and lut_global = 1, and the
+//    lookups read global memory (L2) instead: the same entries summed in
+//    the same order, so the same bits;
 //  * each thread takes one row of a 256-row tile, reads its code row as
 //    32-bit words (kept in registers) and sums each query's M lookups.
 //    Layout: query q's table at q*M*K, subspace m's K entries contiguous.
@@ -32,7 +36,10 @@
 //    random (a few lanes per bank at worst);
 //  * a (query, row) pair is a candidate only when its sum is below the
 //    query's current R-th distance (strict: rows come in increasing id, an
-//    equal distance never displaces an earlier row); the filter program is
+//    equal distance never displaces an earlier row) and, when the wrapper
+//    gives a per-query lower bound (after_d, after_i), when its (sum, id)
+//    comes strictly after it -- how the wrapper chains passes of RMAX for
+//    a longer R (kernels/_common.py chain_topk); the filter program is
 //    evaluated for candidates only, and they are appended to a per-query
 //    shared-memory buffer (R = rerank * k is 80 at favor-anns: too long for
 //    a per-thread register list);
@@ -107,23 +114,29 @@ __device__ __forceinline__ float adc_sum(const float* lq, int M, int K,
   return acc;
 }
 
+template <bool LUT_GLOBAL>
 __global__ void __launch_bounds__(TPB) pq_scan(
     const void* __restrict__ luts, int lut_bf16,
     const uint8_t* __restrict__ codes, const float* __restrict__ norms,
     const int* __restrict__ ints, const float* __restrict__ floats,
     const float* __restrict__ valid, const long long* __restrict__ imask,
-    const float* __restrict__ flo, const float* __restrict__ fhi, int B, int N,
-    int M, int K, int mi, int mf, int W, int R, int QT, int rows_per_split,
-    float* __restrict__ part_d, int* __restrict__ part_i) {
+    const float* __restrict__ flo, const float* __restrict__ fhi,
+    const float* __restrict__ after_d, const int* __restrict__ after_i,
+    int B, int N, int M, int K, int mi, int mf, int W, int R, int QT,
+    int rows_per_split, float* __restrict__ part_d,
+    int* __restrict__ part_i) {
   extern __shared__ float4 smem4[];
   const int mk = M * K;
-  float* lut = reinterpret_cast<float*>(smem4);        // QT * M * K
-  float* ld = lut + (size_t)QT * mk;                   // 2 * QT * R
+  // QT * M * K staged f32 tables, or none when they stay in global memory
+  float* lut = reinterpret_cast<float*>(smem4);
+  const float* glut =
+      reinterpret_cast<const float*>(luts) + (size_t)blockIdx.x * QT * mk;
+  float* ld = lut + (LUT_GLOBAL ? 0 : (size_t)QT * mk);  // 2 * QT * R
   int* li = reinterpret_cast<int*>(ld + 2 * QT * R);   // 2 * QT * R
   float* cd = reinterpret_cast<float*>(li + 2 * QT * R);  // QT * TPB
   int* ci = reinterpret_cast<int*>(cd + QT * TPB);         // QT * TPB
-  __shared__ int cnt[QTMAX], cur[QTMAX];
-  __shared__ float thr[QTMAX];
+  __shared__ int cnt[QTMAX], cur[QTMAX], aft_i[QTMAX];
+  __shared__ float thr[QTMAX], aft_d[QTMAX];
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * QT;
@@ -133,8 +146,9 @@ __global__ void __launch_bounds__(TPB) pq_scan(
   const int row1 = min(N, row0 + rows_per_split);
   const bool packed = (M & 3) == 0 && M <= 4 * MW;
 
-  for (int e = tid; e < nq * mk; e += TPB)
-    lut[e] = lut_at(luts, lut_bf16, (size_t)q0 * mk + e);
+  if (!LUT_GLOBAL)
+    for (int e = tid; e < nq * mk; e += TPB)
+      lut[e] = lut_at(luts, lut_bf16, (size_t)q0 * mk + e);
   for (int e = tid; e < 2 * QT * R; e += TPB) {
     ld[e] = BIG;
     li[e] = -1;
@@ -143,6 +157,9 @@ __global__ void __launch_bounds__(TPB) pq_scan(
     cnt[tid] = 0;
     cur[tid] = 0;
     thr[tid] = tid < nq ? BIG : -INFINITY;
+    const bool lb = after_d != nullptr && tid < nq;
+    aft_d[tid] = lb ? after_d[q0 + tid] : -INFINITY;
+    aft_i[tid] = lb ? after_i[q0 + tid] : -1;
   }
   __syncthreads();
 
@@ -158,9 +175,10 @@ __global__ void __launch_bounds__(TPB) pq_scan(
           if (4 * w < M) words[w] = __ldg(c4 + w);
       }
       for (int q = 0; q < nq; ++q) {
-        const float acc = adc_sum(lut + (size_t)q * mk, M, K, packed, words,
-                                  crow);
+        const float acc = adc_sum((LUT_GLOBAL ? glut : lut) + (size_t)q * mk,
+                                  M, K, packed, words, crow);
         if (!(acc < thr[q])) continue;
+        if (!before(aft_d[q], aft_i[q], acc, row)) continue;
         const int qi = q0 + q;
         if (!favor::eval_row(valid + (size_t)qi * W,
                              imask + (size_t)qi * W * mi,
@@ -294,34 +312,40 @@ int pq_adc_max_r() { return RMAX; }
 int pq_adc_max_qt() { return QTMAX; }
 int pq_adc_tile_rows() { return TPB; }
 
-size_t pq_adc_topr_smem_bytes(int M, int K, int R, int QT) {
-  return sizeof(float) * (size_t)QT * M * K +
+size_t pq_adc_topr_smem_bytes(int M, int K, int R, int QT, int lut_global) {
+  return sizeof(float) * (lut_global ? 0 : (size_t)QT * M * K) +
          (sizeof(float) + sizeof(int)) * ((size_t)2 * QT * R +
                                           (size_t)QT * TPB);
 }
 
-// luts (B, M*K) f32 or bf16 (lut_bf16); codes (N, M) uint8; part_d /
+// luts (B, M*K) f32 or bf16 (lut_bf16; f32 when lut_global, which reads
+// them from global memory instead of staging them); codes (N, M) uint8;
+// after_d / after_i: (B,) per-query lower bound, or both null; part_d /
 // part_i: (B, splits, R) scratch; out_d / out_i: (B, R).
 // Returns cudaGetLastError() after the launches (0 = launched).
-int pq_adc_topr_launch(const void* luts, int lut_bf16, const void* codes,
-                       const void* norms, const void* ints, const void* floats,
-                       const void* valid, const void* imask, const void* flo,
-                       const void* fhi, int B, int N, int M, int K, int mi,
-                       int mf, int W, int R, int QT, int splits, void* part_d,
-                       void* part_i, void* out_d, void* out_i, void* stream) {
-  const size_t smem = pq_adc_topr_smem_bytes(M, K, R, QT);
+int pq_adc_topr_launch(const void* luts, int lut_bf16, int lut_global,
+                       const void* codes, const void* norms, const void* ints,
+                       const void* floats, const void* valid,
+                       const void* imask, const void* flo, const void* fhi,
+                       const void* after_d, const void* after_i, int B, int N,
+                       int M, int K, int mi, int mf, int W, int R, int QT,
+                       int splits, void* part_d, void* part_i, void* out_d,
+                       void* out_i, void* stream) {
+  const size_t smem = pq_adc_topr_smem_bytes(M, K, R, QT, lut_global);
+  auto kern = lut_global ? pq_scan<true> : pq_scan<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      pq_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows_per_split = (N + splits - 1) / splits;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   dim3 grid((B + QT - 1) / QT, splits);
-  pq_scan<<<grid, TPB, smem, st>>>(
+  kern<<<grid, TPB, smem, st>>>(
       luts, lut_bf16, static_cast<const uint8_t*>(codes),
       static_cast<const float*>(norms), static_cast<const int*>(ints),
       static_cast<const float*>(floats), static_cast<const float*>(valid),
       static_cast<const long long*>(imask), static_cast<const float*>(flo),
-      static_cast<const float*>(fhi), B, N, M, K, mi, mf, W, R, QT,
+      static_cast<const float*>(fhi), static_cast<const float*>(after_d),
+      static_cast<const int*>(after_i), B, N, M, K, mi, mf, W, R, QT,
       rows_per_split, static_cast<float*>(part_d), static_cast<int*>(part_i));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -74,6 +74,49 @@ def apply_missing(ids: torch.Tensor, dists: torch.Tensor, valid):
             torch.where(missing, torch.full_like(dists, float("inf")), dists))
 
 
+def after_mask(keys: torch.Tensor, ids: torch.Tensor, after):
+    """(B, n) bool: which (key, id) pairs come strictly after each query's
+    lower bound ``after`` = (after_d (B,), after_i (B,)) in (key, id) order;
+    all True when ``after`` is None."""
+    if after is None:
+        return torch.ones_like(keys, dtype=torch.bool)
+    ad, ai = after[0][:, None], after[1][:, None]
+    return (keys > ad) | ((keys == ad) & (ids > ai))
+
+
+def chain_topk(scan, k: int, kmax: int, after=None):
+    """The top-``k`` of a scan whose lists hold at most ``kmax`` entries.
+
+    ``scan(kk, after)`` returns (ids (B, kk), dists (B, kk)) sorted by
+    (distance, id): the first ``kk`` pairs strictly after ``after`` (None:
+    from the start), with a missing tail of distance >= BIG (or +inf) and
+    id -1.  Passes of ``kmax`` are chained, each starting after the last
+    pair of the one before, and concatenated: exactly the one-pass top-k,
+    at one scan per ``kmax`` entries.  The chain stops early when every
+    query's pass came back short; what is left is filled with -1 / +inf.
+    """
+    if k <= kmax:
+        return scan(k, after)
+    ids, dists, got = [], [], 0
+    while got < k:
+        kk = min(kmax, k - got)
+        i, d = scan(kk, after)
+        ids.append(i)
+        dists.append(d)
+        got += kk
+        last_d, last_i = d[:, -1].contiguous(), i[:, -1].contiguous()
+        if got < k and not bool((last_d < BIG).any()):
+            break
+        after = (last_d, last_i)
+    out_i, out_d = torch.cat(ids, dim=1), torch.cat(dists, dim=1)
+    if got < k:
+        b = out_i.shape[0]
+        out_i = torch.cat([out_i, out_i.new_full((b, k - got), -1)], dim=1)
+        out_d = torch.cat([out_d, out_d.new_full((b, k - got),
+                                                 float("inf"))], dim=1)
+    return out_i, out_d
+
+
 ROW_BLOCK = 8   # queries per GEMM in ``rows_mm``
 
 

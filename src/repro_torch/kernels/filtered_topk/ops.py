@@ -21,8 +21,30 @@ from .. import check_status, count_launch, library
 from ...core import filters as F
 
 NAME = "filtered_topk"
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-             + [ctypes.c_void_p] * 5)
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float]
+             + [ctypes.c_void_p] * 7)
+
+# The TF32 screen's margin (csrc/filtered_topk.cu, "The screen"): the
+# tensor cores read an f32 operand's upper 19 bits (truncation: relative
+# error below 2^-10; round-to-nearest would give 2^-11), form each product
+# exactly and accumulate in f32 with truncation, at most 9 ulps of 2^-23
+# per eight-term mma step, bounded here by d * 2^-22; the exact dot the
+# kernel returns is one f32 FMA chain, within 1.01 * d * 2^-24.  Each term
+# is relative to sum |q_i v_i| <= |q| |v|.
+TF32_UNIT = 2.0 ** -10
+SCREEN_SAFETY = 2.0
+
+
+def screen_eps(d: int) -> float:
+    """epsilon of the screen's margin e(q, v) = epsilon * |q| * |v|: an upper
+    bound on |TF32 dot - exact kernel dot| over |q| |v| for d-long vectors,
+    times a safety factor that also covers the f32 rounding of |q|, |v|, e
+    and the bound itself (each O(d * 2^-24) relative)."""
+    u = TF32_UNIT
+    inputs = 2.0 * u + u * u
+    accumulate = d * 2.0 ** -22 * (1.0 + u) ** 2
+    exact_chain = 1.01 * d * 2.0 ** -24
+    return SCREEN_SAFETY * (inputs + accumulate + exact_chain)
 
 
 def _fn():
@@ -31,35 +53,43 @@ def _fn():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        lib.filtered_topk_max_k.restype = ctypes.c_int
-        lib.filtered_topk_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.filtered_topk_smem_bytes.restype = ctypes.c_size_t
+        for f in (lib.filtered_topk_max_k, lib.filtered_topk_query_tile,
+                  lib.filtered_topk_tile_rows):
+            f.restype = ctypes.c_int
     return lib, fn
 
 
-def _splits(b: int, n: int, sms: int) -> int:
-    """DB splits: about sixteen blocks (of 256 queries) per SM over the whole
-    grid, with at least 16 rows (one tile) per split."""
-    q_tiles = -(-b // 256)
-    want = max(1, -(-16 * sms // q_tiles))
-    return max(1, min(want, -(-n // 16), 65535))
+def _splits(b: int, n: int, sms: int, q_tile: int, tile_rows: int) -> int:
+    """DB splits: about one block per SM over the whole grid (a block holds
+    one tile of ``q_tile`` queries for its whole run, so long splits let
+    each query's threshold tighten early), at least one row tile each."""
+    q_tiles = -(-b // q_tile)
+    return max(1, min(sms // q_tiles, -(-n // tile_rows), 65535))
 
 
 def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
                   k: int = 10, dvec=None, exclude: bool = False, valid=None,
-                  chunk: int = 8192):
+                  chunk: int = 8192, after=None, screen_counts=None,
+                  rescore_counts=None):
     """Fused filtered brute-force top-k over the DB.
 
     vectors (N, d) f32, norms (N,) f32, ints (N, m_i) int32, floats (N, m_f)
     f32, queries (B, d) f32, programs {valid (B, W) f32, imask (B, W, m_i)
-    int64, flo/fhi (B, W, m_f) f32}, dvec (B,) f32 (exclusion mode).
-    CPU tensors run ``filtered_topk_plain`` (scan chunk ``chunk``); CUDA
-    tensors launch the kernel.  Returns (ids, dists).
+    int64, flo/fhi (B, W, m_f) f32}, dvec (B,) f32 (exclusion mode);
+    ``after`` an optional per-query lower bound (after_d (B,) f32, after_i
+    (B,) int32): only pairs strictly after it in (distance, id) order are
+    returned.  CPU tensors run ``filtered_topk_plain`` (scan chunk
+    ``chunk``); CUDA tensors launch the kernel, in chained passes of its
+    list length when k is larger (``_common.chain_topk``).
+    ``screen_counts`` and ``rescore_counts``, optional (B,) int32 CUDA
+    tensors, get each query's count of pairs that passed the kernel's TF32
+    screen, and of pairs whose distance it then computed exactly, added to
+    them.  Returns (ids, dists).
     """
     if not C.on_cuda(queries):
         return filtered_topk_plain(vectors, norms, ints, floats, queries,
                                    programs, k=k, dvec=dvec, exclude=exclude,
-                                   valid=valid, chunk=chunk)
+                                   valid=valid, chunk=chunk, after=after)
     C.require_cuda(NAME)
     dev = queries.device
     b, d = queries.shape
@@ -74,46 +104,58 @@ def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
     if dvec is None:
         dvec = torch.zeros((b,), dtype=torch.float32, device=dev)
     C.check(NAME, "dvec", dvec, torch.float32, (b,), dev)
+    if after is not None:
+        C.check(NAME, "after_d", after[0], torch.float32, (b,), dev)
+        C.check(NAME, "after_i", after[1], torch.int32, (b,), dev)
+    for label, cnt in (("screen_counts", screen_counts),
+                       ("rescore_counts", rescore_counts)):
+        if cnt is not None:
+            C.check(NAME, label, cnt, torch.int32, (b,), dev)
+    if k < 1:
+        raise ValueError(f"{NAME}: k={k} must be at least 1")
     lib, fn = _fn()
-    if not 1 <= k <= lib.filtered_topk_max_k():
-        raise ValueError(f"{NAME}: k={k} outside [1, "
-                         f"{lib.filtered_topk_max_k()}]")
-    smem = lib.filtered_topk_smem_bytes(d, mi, mf)
-    if smem > 227 * 1024:
-        raise ValueError(f"{NAME}: d={d} needs {smem} bytes of shared memory "
-                         "per block, above the card's 227 KB")
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    if b and n:
-        splits = _splits(b, n, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-        part_d = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
-        part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-        # the kernel reads the queries transposed, (d, B): coalesced
-        qt = queries.t().contiguous()
-        status = fn(C.ptr(qt), C.ptr(vectors), C.ptr(norms), C.ptr(ints),
+    if not (b and n):
+        return C.apply_missing(
+            torch.full((b, k), -1, dtype=torch.int32, device=dev),
+            torch.full((b, k), C.BIG, dtype=torch.float32, device=dev), valid)
+    splits = _splits(b, n, torch.cuda.get_device_properties(
+        dev).multi_processor_count, lib.filtered_topk_query_tile(),
+        lib.filtered_topk_tile_rows())
+    eps = screen_eps(d)
+
+    def one_pass(kk, aft):
+        out_d = torch.empty((b, kk), dtype=torch.float32, device=dev)
+        out_i = torch.empty((b, kk), dtype=torch.int32, device=dev)
+        part_d = torch.empty((b, splits, kk), dtype=torch.float32, device=dev)
+        part_i = torch.empty((b, splits, kk), dtype=torch.int32, device=dev)
+        ad, ai = (None, None) if aft is None else (C.ptr(aft[0]),
+                                                   C.ptr(aft[1]))
+        status = fn(C.ptr(queries), C.ptr(vectors), C.ptr(norms), C.ptr(ints),
                     C.ptr(floats), C.ptr(programs["valid"]),
                     C.ptr(programs["imask"]), C.ptr(programs["flo"]),
-                    C.ptr(programs["fhi"]), C.ptr(dvec), b, n, d, mi, mf, w,
-                    k, int(bool(exclude)), splits, C.ptr(part_d),
-                    C.ptr(part_i), C.ptr(out_d), C.ptr(out_i),
+                    C.ptr(programs["fhi"]), C.ptr(dvec), ad, ai, b, n, d, mi,
+                    mf, w, kk, int(bool(exclude)), splits, eps,
+                    None if screen_counts is None else C.ptr(screen_counts),
+                    None if rescore_counts is None else C.ptr(rescore_counts),
+                    C.ptr(part_d), C.ptr(part_i), C.ptr(out_d), C.ptr(out_i),
                     C.stream_ptr(dev))
         check_status(NAME, status)
         count_launch(NAME)
-    else:
-        out_d.fill_(C.BIG)
-        out_i.fill_(-1)
+        return out_i, out_d
+
+    out_i, out_d = C.chain_topk(one_pass, k, lib.filtered_topk_max_k(), after)
     return C.apply_missing(out_i, out_d, valid)
 
 
 def filtered_topk_plain(vectors, norms, ints, floats, queries, programs, *,
                         k: int = 10, dvec=None, exclude: bool = False,
-                        valid=None, chunk: int = 8192):
+                        valid=None, chunk: int = 8192, after=None):
     """The kernel's function in plain torch: per DB chunk, matmuls of fixed
     row count for the dots (``rows_mm``: a row's result does not depend on
-    the batch width), the filter program, the mask or exclusion, then a
-    stable sort of [carried top-k, chunk] -- carried entries and lower ids
-    win ties."""
+    the batch width), the filter program, the mask or exclusion, the lower
+    bound ``after`` (pairs not strictly after it in (distance, id) order
+    are dropped), then a stable sort of [carried top-k, chunk] -- carried
+    entries and lower ids win ties."""
     dev = queries.device
     C.no_tf32(dev)
     b = queries.shape[0]
@@ -139,6 +181,7 @@ def filtered_topk_plain(vectors, norms, ints, floats, queries, programs, *,
         dist = torch.clamp(dist, max=C.BIG)
         ids = torch.arange(s, s + v.shape[0], dtype=torch.int32,
                            device=dev).expand(b, -1)
+        dist = torch.where(C.after_mask(dist, ids, after), dist, C.BIG)
         md = torch.cat([best_d, dist], dim=1)
         mi = torch.cat([best_i, ids], dim=1)
         order = torch.sort(md, dim=1, stable=True).indices[:, :k]

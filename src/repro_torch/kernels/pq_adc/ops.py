@@ -34,14 +34,15 @@ def _lib():
     lib = library(TOPR)
     if lib.pq_adc_topr_launch.argtypes is None:
         lib.pq_adc_topr_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5)
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+            + [ctypes.c_void_p] * 5)
         lib.pq_adc_topr_launch.restype = ctypes.c_int
         lib.pq_adc_gather_launch.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 8
             + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
         lib.pq_adc_gather_launch.restype = ctypes.c_int
-        lib.pq_adc_topr_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.pq_adc_topr_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.pq_adc_topr_smem_bytes.restype = ctypes.c_size_t
         for fn in (lib.pq_adc_max_r, lib.pq_adc_max_qt, lib.pq_adc_tile_rows):
             fn.restype = ctypes.c_int
@@ -55,16 +56,21 @@ def _check_luts(name, luts, b, m, dev):
     C.check(name, "luts", luts, luts.dtype, (b, m, None), dev)
 
 
-def _query_tile(lib, b: int, m: int, ksub: int, r: int) -> int:
-    """Queries per scan block: as many as two blocks per SM can hold in
-    shared memory, else as many as one block can."""
+def _query_tile(lib, b: int, m: int, ksub: int, r: int) -> tuple[int, bool]:
+    """(queries per scan block, LUTs read from global memory): as many
+    queries as two blocks per SM can hold in shared memory with their LUTs,
+    else as many as one block can; when not even one query's LUT fits
+    beside its top-r list, the LUTs stay in global memory and only the
+    lists are staged."""
     cap = min(b, lib.pq_adc_max_qt())
-    for budget in (_SMEM_TWO_BLOCKS, _SMEM_MAX):
-        for qt in range(cap, 0, -1):
-            if lib.pq_adc_topr_smem_bytes(m, ksub, r, qt) <= budget:
-                return qt
-    raise ValueError(f"{TOPR}: one query's LUT (M={m}, K={ksub}) and a "
-                     f"top-{r} list need more shared memory than a block has")
+    for lut_global in (False, True):
+        for budget in (_SMEM_TWO_BLOCKS, _SMEM_MAX):
+            for qt in range(cap, 0, -1):
+                if lib.pq_adc_topr_smem_bytes(m, ksub, r, qt,
+                                              int(lut_global)) <= budget:
+                    return qt, lut_global
+    raise AssertionError(f"{TOPR}: a top-{r} list of at most "
+                         f"{lib.pq_adc_max_r()} entries always fits")
 
 
 def _splits(q_tiles: int, n: int, sms: int, tile: int) -> int:
@@ -75,19 +81,23 @@ def _splits(q_tiles: int, n: int, sms: int, tile: int) -> int:
 
 
 def pq_adc_topr(codes, norms, ints, floats, luts, programs, *, r: int = 40,
-                valid=None, chunk: int = 8192):
+                valid=None, chunk: int = 8192, after=None):
     """Fused compressed filtered top-R candidate scan.
 
     codes (N, M) uint8; norms (N,) f32 (rows with norm +inf or >= BIG are
     padding and never returned); ints (N, m_i) int32, floats (N, m_f) f32;
     luts (B, M, K) f32 or bf16 from ``quant.adc.build_luts``; programs
-    {valid (B, W) f32, imask (B, W, m_i) int64, flo/fhi (B, W, m_f) f32}.
-    CPU tensors run ``pq_adc_topr_plain`` (scan chunk ``chunk``); CUDA
-    tensors launch the kernel.  Returns (ids (B, R), adc2 (B, R)).
+    {valid (B, W) f32, imask (B, W, m_i) int64, flo/fhi (B, W, m_f) f32};
+    ``after`` an optional per-query lower bound (after_d (B,) f32, after_i
+    (B,) int32): only pairs strictly after it in (distance, id) order are
+    returned.  CPU tensors run ``pq_adc_topr_plain`` (scan chunk
+    ``chunk``); CUDA tensors launch the kernel, in chained passes of its
+    longest list when R is larger (``_common.chain_topk``).  Returns (ids
+    (B, R), adc2 (B, R)).
     """
     if not C.on_cuda(luts):
         return pq_adc_topr_plain(codes, norms, ints, floats, luts, programs,
-                                 r=r, valid=valid, chunk=chunk)
+                                 r=r, valid=valid, chunk=chunk, after=after)
     C.require_cuda(TOPR)
     dev = luts.device
     b, m, ksub = luts.shape
@@ -99,32 +109,45 @@ def pq_adc_topr(codes, norms, ints, floats, luts, programs, *, r: int = 40,
     C.check(TOPR, "ints", ints, torch.int32, (n, mi), dev)
     C.check(TOPR, "floats", floats, torch.float32, (n, mf), dev)
     w = C.check_programs(TOPR, programs, b, mi, mf, dev)
-    lib = _lib()
-    if not 1 <= r <= lib.pq_adc_max_r():
-        raise ValueError(f"{TOPR}: r={r} outside [1, {lib.pq_adc_max_r()}]")
+    if after is not None:
+        C.check(TOPR, "after_d", after[0], torch.float32, (b,), dev)
+        C.check(TOPR, "after_i", after[1], torch.int32, (b,), dev)
+    if r < 1:
+        raise ValueError(f"{TOPR}: r={r} must be at least 1")
     if ksub > 256:
         raise ValueError(f"{TOPR}: K={ksub} codes do not fit in uint8")
-    out_d = torch.empty((b, r), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, r), dtype=torch.int32, device=dev)
-    if b and n:
-        qt = _query_tile(lib, b, m, ksub, r)
-        q_tiles = -(-b // qt)
-        splits = _splits(q_tiles, n, torch.cuda.get_device_properties(
-            dev).multi_processor_count, lib.pq_adc_tile_rows())
-        part_d = torch.empty((b, splits, r), dtype=torch.float32, device=dev)
-        part_i = torch.empty((b, splits, r), dtype=torch.int32, device=dev)
+    lib = _lib()
+    if not (b and n):
+        return C.apply_missing(
+            torch.full((b, r), -1, dtype=torch.int32, device=dev),
+            torch.full((b, r), C.BIG, dtype=torch.float32, device=dev), valid)
+    rmax = lib.pq_adc_max_r()
+    qt, lut_global = _query_tile(lib, b, m, ksub, min(r, rmax))
+    if lut_global:          # the kernel reads f32 tables from global memory
+        luts = luts.float()  # (exact: the kernel widens bf16 anyway)
+    q_tiles = -(-b // qt)
+    splits = _splits(q_tiles, n, torch.cuda.get_device_properties(
+        dev).multi_processor_count, lib.pq_adc_tile_rows())
+
+    def one_pass(rr, aft):
+        out_d = torch.empty((b, rr), dtype=torch.float32, device=dev)
+        out_i = torch.empty((b, rr), dtype=torch.int32, device=dev)
+        part_d = torch.empty((b, splits, rr), dtype=torch.float32, device=dev)
+        part_i = torch.empty((b, splits, rr), dtype=torch.int32, device=dev)
+        ad, ai = (None, None) if aft is None else (C.ptr(aft[0]),
+                                                   C.ptr(aft[1]))
         status = lib.pq_adc_topr_launch(
-            C.ptr(luts), int(luts.dtype == torch.bfloat16), C.ptr(codes),
-            C.ptr(norms), C.ptr(ints), C.ptr(floats),
+            C.ptr(luts), int(luts.dtype == torch.bfloat16), int(lut_global),
+            C.ptr(codes), C.ptr(norms), C.ptr(ints), C.ptr(floats),
             C.ptr(programs["valid"]), C.ptr(programs["imask"]),
-            C.ptr(programs["flo"]), C.ptr(programs["fhi"]), b, n, m, ksub,
-            mi, mf, w, r, qt, splits, C.ptr(part_d), C.ptr(part_i),
+            C.ptr(programs["flo"]), C.ptr(programs["fhi"]), ad, ai, b, n, m,
+            ksub, mi, mf, w, rr, qt, splits, C.ptr(part_d), C.ptr(part_i),
             C.ptr(out_d), C.ptr(out_i), C.stream_ptr(dev))
         check_status(TOPR, status)
         count_launch(TOPR)
-    else:
-        out_d.fill_(C.BIG)
-        out_i.fill_(-1)
+        return out_i, out_d
+
+    out_i, out_d = C.chain_topk(one_pass, r, rmax, after)
     return C.apply_missing(out_i, out_d, valid)
 
 
@@ -138,11 +161,14 @@ def _adc_sum(lookup, m: int):
 
 
 def pq_adc_topr_plain(codes, norms, ints, floats, luts, programs, *,
-                      r: int = 40, valid=None, chunk: int = 8192):
+                      r: int = 40, valid=None, chunk: int = 8192,
+                      after=None):
     """The kernel's function in plain torch: per DB chunk, the ADC sums
     (one gathered LUT column per subspace, added in order), the filter
-    program, the pad-row gate, then a stable sort of [carried top-R, chunk]
-    -- carried entries and lower ids win ties."""
+    program, the pad-row gate, the lower bound ``after`` (pairs not
+    strictly after it in (distance, id) order are dropped), then a stable
+    sort of [carried top-R, chunk] -- carried entries and lower ids win
+    ties."""
     dev = luts.device
     b, m, ksub = luts.shape
     n = codes.shape[0]
@@ -159,6 +185,7 @@ def pq_adc_topr_plain(codes, norms, ints, floats, luts, programs, *,
         dist = torch.clamp(torch.where(ok, adc, C.BIG), max=C.BIG)
         ids = torch.arange(s, s + cc.shape[0], dtype=torch.int32,
                            device=dev).expand(b, -1)
+        dist = torch.where(C.after_mask(dist, ids, after), dist, C.BIG)
         md = torch.cat([best_d, dist], dim=1)
         mid = torch.cat([best_i, ids], dim=1)
         order = torch.sort(md, dim=1, stable=True).indices[:, :r]

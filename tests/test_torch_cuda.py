@@ -63,7 +63,9 @@ def _case(dev, n, d, b, seed, pad_to=None, schema_kw=None):
 @pytest.mark.parametrize("exclude", [False, True])
 @pytest.mark.parametrize("n,d,b,k,pad", [(5000, 128, 300, 10, 8192),
                                          (777, 20, 37, 33, None),
-                                         (50, 16, 3, 64, 64)])
+                                         (50, 16, 3, 48, 64),  # k = KMAX
+                                         (600, 19, 9, 12, None),
+                                         (2000, 301, 130, 10, None)])
 def test_filtered_topk_kernel_matches_plain(dev, n, d, b, k, pad, exclude):
     db, qs, progs, rng = _case(dev, n, d, b, seed=n, pad_to=pad)
     dvec = torch.as_tensor(rng.uniform(0.1, 2.0, size=b).astype(np.float32),
@@ -123,6 +125,89 @@ def test_gather_distance_kernel_matches_plain(dev, n, d, b, m):
     assert torch.equal(kd2, kd[:2])
 
 
+def _ft_both(dev, db, qs, progs, k, exclude, dvec, **kw):
+    """(kernel ids, dists), (plain ids, dists) and their mismatch count."""
+    got = ft.filtered_topk(*db, qs, progs, k=k, dvec=dvec, exclude=exclude,
+                           **kw)
+    want = ft.filtered_topk_plain(*db, qs, progs, k=k, dvec=dvec,
+                                  exclude=exclude, **kw)
+    m = topk_mismatch(want[0].cpu().numpy(), want[1].cpu().numpy(),
+                      got[0].cpu().numpy(), got[1].cpu().numpy(), rtol=TOL,
+                      atol=TOL)
+    return got, want, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclude", [False, True])
+@pytest.mark.parametrize("k", [49, 65, 100, 256, 1000])
+def test_filtered_topk_large_k_matches_plain(dev, k, exclude):
+    """k above the kernel's list length (48): chained passes, each after
+    the last pair of the one before, equal the plain version's one pass."""
+    db, qs, progs, rng = _case(dev, 6000, 128, 40, seed=k, pad_to=8192)
+    dvec = torch.as_tensor(rng.uniform(0.1, 2.0, size=40).astype(np.float32),
+                           device=dev)
+    lib = K.library("filtered_topk")
+    passes = -(-k // lib.filtered_topk_max_k())
+    before = K.launch_counts["filtered_topk"]
+    (kid, kd), (pid, pd), m = _ft_both(dev, db, qs, progs, k, exclude, dvec)
+    assert K.launch_counts["filtered_topk"] - before <= passes
+    assert kid.shape == (40, k)
+    assert m["dist_mismatch"] == 0 and m["id_mismatch"] == 0, m
+    assert int(kid.max()) < 6000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclude", [False, True])
+def test_filtered_topk_bits_do_not_depend_on_batch_width(dev, exclude):
+    """One query's ids and distances are the same bits in a batch of 1, 8 or
+    1024: every returned distance is the per-pair f32 chain."""
+    db, qs, progs, rng = _case(dev, 60000, 128, 1024, seed=11, pad_to=8192)
+    dvec = torch.as_tensor(rng.uniform(0.1, 2.0, size=1024).astype(
+        np.float32), device=dev)
+    full = ft.filtered_topk(*db, qs, progs, k=10, dvec=dvec, exclude=exclude)
+    for lo, width in ((517, 1), (300, 8)):
+        sl = slice(lo, lo + width)
+        part = ft.filtered_topk(*db, qs[sl].clone(),
+                                {k: v[sl].clone() for k, v in progs.items()},
+                                k=10, dvec=dvec[sl].clone(), exclude=exclude)
+        assert torch.equal(part[0], full[0][sl])
+        assert torch.equal(part[1], full[1][sl])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclude", [False, True])
+def test_filtered_topk_low_selectivity_and_pad_tail(dev, exclude):
+    """Under a < 1 % filter (the screen passes the most pairs there) and with
+    a DB whose last splits hold only pad rows, the kernel equals the plain
+    version and never returns a pad row."""
+    rng = np.random.default_rng(12)
+    n, d, b = 3000, 128, 64
+    schema = PF.paper_schema()
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    norms = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
+    attrs = PF.random_attributes(schema, n, seed=13)
+    db = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+          for a in prefbf.pad_db(vecs, norms, attrs.ints, attrs.floats,
+                                 32768)]
+    tiny = PF.And(PF.Equality("i0", 3), PF.Range("f0", 10, 12))
+    flts = [tiny if i % 2 else PF.TrueFilter() for i in range(b)]
+    progs = compile_programs(flts, schema, b, device=dev)
+    qs = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                         device=dev)
+    dvec = torch.full((b,), 0.7, device=dev)
+    counts = torch.zeros(b, dtype=torch.int32, device=dev)
+    exact = torch.zeros(b, dtype=torch.int32, device=dev)
+    (kid, kd), _, m = _ft_both(dev, db, qs, progs, 10, exclude, dvec)
+    assert m["dist_mismatch"] == 0 and m["id_mismatch"] == 0, m
+    assert int(kid.max()) < n
+    ft.filtered_topk(*db, qs, progs, k=10, dvec=dvec, exclude=exclude,
+                     screen_counts=counts, rescore_counts=exact)
+    assert int(counts.min()) >= 10          # every list filled at least once
+    assert int(counts.max()) <= n           # pad rows never pass the screen
+    assert bool((exact <= counts).all())    # re-scores are screened pairs
+    assert int(exact[(kd[:, -1] < 1e30)].min()) >= 10  # each returned pair
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(dev):
     db, qs, progs, _ = _case(dev, 100, 16, 4, seed=1)
@@ -130,8 +215,8 @@ def test_wrappers_reject_bad_inputs(dev):
         ft.filtered_topk(db[0].double(), *db[1:], qs, progs, k=5)
     with pytest.raises(ValueError, match="contiguous"):
         ft.filtered_topk(*db, qs.t().contiguous().t(), progs, k=5)
-    with pytest.raises(ValueError, match="k=1000"):
-        ft.filtered_topk(*db, qs, progs, k=1000)
+    with pytest.raises(ValueError, match="k=0"):
+        ft.filtered_topk(*db, qs, progs, k=0)
     with pytest.raises(ValueError, match="expected cuda"):
         gd.gather_distance(*db, qs, torch.zeros((4, 3), dtype=torch.int32),
                            progs, torch.zeros(4, device=dev))
@@ -242,13 +327,31 @@ def test_pq_kernels_zero_width_attributes(dev, schema_kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,b,m,r", [
+    (20000, 6, 8, 1025),        # R above the longest list: chained passes
+    (20000, 4, 32, 1600),       # favor-anns' M at R = 1600
+    (3000, 5, 240, 80),         # M = 240 x K = 256: LUTs from global memory
+    (3000, 3, 240, 1600),       # both
+])
+def test_pq_adc_topr_long_lists_and_wide_luts(dev, n, b, m, r, lut_dtype):
+    codes, norms, ints, floats, luts, progs, _ = _pq_case(
+        dev, n, b, m, 8, seed=n + m + r, n_pad=50, lut_dtype=lut_dtype)
+    kid, kd = pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=r)
+    pid, pd = pq.pq_adc_topr_plain(codes, norms, ints, floats, luts, progs,
+                                   r=r)
+    assert torch.equal(kid, pid) and torch.equal(kd, pd)
+    assert int(kid.max()) < n - 50
+
+
+@pytest.mark.cuda
 def test_pq_wrappers_reject_bad_inputs(dev):
     codes, norms, ints, floats, luts, progs, _ = _pq_case(dev, 100, 4, 8, 6,
                                                           seed=1)
     with pytest.raises(ValueError, match="dtype"):
         pq.pq_adc_topr(codes.int(), norms, ints, floats, luts, progs, r=5)
-    with pytest.raises(ValueError, match="r=5000"):
-        pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=5000)
+    with pytest.raises(ValueError, match="r=0"):
+        pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=0)
     with pytest.raises(ValueError, match="dtype"):
         pq.pq_adc_gather(codes, luts.double(),
                          torch.zeros((4, 3), dtype=torch.int32, device=dev))
@@ -283,7 +386,7 @@ def test_embedding_bag_kernel_matches_plain(dev, v, d, b, l, mode):
                                    (9, [0, 1, 2, 3, 4, 5, 6, 7, 8])])
 def test_kernels_bits_do_not_depend_on_tile_mates(dev, b, sub):
     """Bucket padding's bar on the card: a query's ids and distances are the
-    same bits whichever lanes share its tile (four queries per thread in
+    same bits whichever lanes share its tile (128-query tiles in
     ``filtered_topk``, three-query tiles in ``pq_adc_topr``) and whatever
     pad lanes ride beside it."""
     from repro_torch.core.batching import BatchSpec, pad_to_bucket
