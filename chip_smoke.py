@@ -63,10 +63,16 @@ sys.path.insert(0, str(ROOT / "src"))
 # Published rates of the H100 (NVIDIA data sheet, dense, at the full power
 # limit), used for the bound of each kernel: f32 outside the tensor cores;
 # TF32 on them for the bound of filtered_topk's screen.
+# The shared-memory rate, for the bound of pq_adc_topr's 8-bit screen, is
+# not on the data sheet: 32 banks x 4 bytes a clock per SM, times the SMs
+# (132 SXM, 114 PCIe) and the data sheet's highest boost clock (1,980 MHz
+# SXM, 1,755 MHz PCIe).
 RATES = {"SXM": {"hbm_bytes_per_s": 3.35e12, "f32_flops": 67e12,
-                 "tf32_flops": 495e12},
+                 "tf32_flops": 495e12,
+                 "smem_bytes_per_s": 128 * 132 * 1.98e9},
          "PCIe": {"hbm_bytes_per_s": 2.0e12, "f32_flops": 51e12,
-                  "tf32_flops": 378e12}}
+                  "tf32_flops": 378e12,
+                  "smem_bytes_per_s": 128 * 114 * 1.755e9}}
 # kernel vs plain version: the kernel's 128-term dot is one FMA chain, the
 # plain version's a cuBLAS / tree reduction, so distances differ in the last
 # f32 bits of the squared form; ids must agree wherever distances are apart
@@ -352,7 +358,7 @@ def phase_kernels(dev, rates):
         "shape": {"B": b, "M0": M0, "N": n, "d": d, "valid_ids": n_valid},
     }
     kernels.update(pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec,
-                              ids_t, n, flush))
+                              ids_t, n, flush, scen))
     emit({"phase": "kernels", "setup_s": setup_s, "rates": rates_used,
           **{name: {k: v for k, v in row.items() if k != "name"}
              for name, row in kernels.items()},
@@ -364,7 +370,7 @@ def phase_kernels(dev, rates):
 
 
 def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
-               flush):
+               flush, scen):
     """pq_adc_topr (f32 LUTs, R = rerank * k) and pq_adc_gather (bf16
     LUTs, filter mode as the traversal calls it) over favor-anns' PQ codes
     of the kernel phase's rows: codes and centroids drawn from the seed,
@@ -403,7 +409,35 @@ def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
                       kd.cpu().numpy(), RTOL, ATOL)
     check(m["dist_mismatch"] == 0 and m["id_mismatch"] == 0,
           f"pq_adc_topr vs plain: {m}")
+    check(bool(torch.equal(kid, pid) and torch.equal(kd, pd)),
+          "pq_adc_topr vs plain: not bit-identical")
     check(int(kid.max()) < n, "pq_adc_topr returned a pad row")
+    # the 8-bit screen's candidates and exact re-scores per query: each DB
+    # split passes every row until its list holds r rows that pass the
+    # filter, and a pair is screened at most once
+    qt, screened = pq._query_tile(pq._lib(), b, PQ_M, ksub, r, (
+        int(progs["valid"].shape[1]), mi, mf))
+    check(screened, f"pq_adc_topr: no 8-bit screen at M={PQ_M}, K={ksub}")
+    splits = pq._splits(-(-b // qt), n_pad, torch.cuda.get_device_properties(
+        dev).multi_processor_count, pq._lib().pq_adc_tile_rows())
+    counts = torch.zeros(b, dtype=torch.int32, device=dev)
+    exact = torch.zeros(b, dtype=torch.int32, device=dev)
+    pq.pq_adc_topr(codes, pn, pi, pf, luts, progs, r=r,
+                   screen_counts=counts, rescore_counts=exact)
+    per, per_x = counts.cpu().numpy(), exact.cpu().numpy()
+    check(int(per.min()) >= r * splits and int(per.max()) <= n,
+          f"pq_adc_topr: screen counts {int(per.min())}..{int(per.max())} "
+          f"outside [r x {splits} splits, {n} rows]")
+    check(int(per_x.min()) >= r and bool((per_x <= per).all()),
+          f"pq_adc_topr: exact re-scores {int(per_x.min())}.."
+          f"{int(per_x.max())}: fewer than r, or above the screen's")
+    names = np.asarray(scen)
+    cands, rescored = {}, {}
+    for out_, v in ((cands, per), (rescored, per_x)):
+        out_.update({s: float(v[names == s].mean())
+                     for s in dict.fromkeys(scen)})
+        out_["all"] = float(v.mean())
+        out_["total"] = int(v.sum())
     # R above the kernel's longest list: chained passes, on a subset
     sub = slice(0, LONG_SUB)
     sub_args = (luts[sub].clone(), {k: v[sub].clone() for k, v in progs.items()})
@@ -419,6 +453,11 @@ def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
     topr_bytes = (n_pad * (PQ_M + 4 * (1 + mi + mf)) + luts.numel() * 4
                   + prog_bytes + b * r * 8)
     topr_ops = b * n * PQ_M            # one add per (query, row, subspace)
+    # the design's own bound: one byte of the 8-bit table per (query, row,
+    # subspace) at the shared-memory rate, then this run's exact re-scores
+    # (M f32 adds each)
+    design_s = (b * n * PQ_M / rates["smem_bytes_per_s"]
+                + PQ_M * rescored["total"] / rates["f32_flops"])
     out["pq_adc_topr"] = {
         "name": "pq_adc_topr", "route": "cuda",
         "source": "src/repro_torch/csrc/pq_adc.cu",
@@ -428,7 +467,12 @@ def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
                               topr_ops / rates["f32_flops"]),
         "bound_by": ("operations" if topr_ops / rates["f32_flops"]
                      >= topr_bytes / rates["hbm_bytes_per_s"] else "bytes"),
+        "bound_ms_design": 1e3 * max(topr_bytes / rates["hbm_bytes_per_s"],
+                                     design_s),
         "library_ms": None,
+        "screen_candidates_per_query": cands,
+        "exact_rescores_per_query": rescored,
+        "query_tile": qt, "splits": splits,
         "compared_rows": rows, "identical_rows": m["identical_rows"],
         f"r{R_LONG}_first{LONG_SUB}_bit_identical": True,
         "shape": {"B": b, "N": n, "M": PQ_M, "K": ksub, "R": r,
@@ -1032,6 +1076,9 @@ def main() -> int:
     kernels["filtered_topk"]["ptxas"] = [
         ln.strip() for ln in logs.get("filtered_topk.cu", "").splitlines()
         if "registers" in ln or "spill" in ln]
+    kernels["pq_adc_topr"]["ptxas"] = [
+        ln.strip() for ln in logs.get("pq_adc.cu", "").splitlines()
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     kernels["embedding_bag"] = phase_embedding_bag(dev, rates)
     launches = phase_serve(dev)
     # each kernel's launches on the pass of the main path that runs it

@@ -43,6 +43,7 @@ from .hnsw import HnswIndex, HnswParams, build_hnsw
 from .options import BuildSpec, QuantSpec, SearchOptions
 from .router import SearchResult, compile_programs, execute
 from .search import graph_topology
+from ..device import resolve_device
 from ..index.epochs import ComponentEpochs
 from ..index.live import LiveState
 
@@ -62,16 +63,6 @@ class _MergePrep:
     pf: tuple       # padded (vectors, pristine norms, ints, floats)
     codes: object
     g: dict
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA device; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: the FAVOR port runs on the card "
-            "unless the caller passes device='cpu'")
-    return dev
 
 
 class FavorIndex:

@@ -13,7 +13,10 @@
 
 namespace favor {
 
-// part_d / part_i: (B, S, k); out_d / out_i: (B, k).  One thread per query.
+// part_d / part_i: (B, S, k); out_d / out_i: (B, k).  One thread per query;
+// each step takes, in every split, the first entry after the last one
+// written (a binary search: the entries up to it are a prefix of the sorted
+// list), and writes the least of them -- k * S * log2(k) reads a query.
 __global__ void merge_splits(const float* __restrict__ part_d,
                              const int* __restrict__ part_i, int B, int S,
                              int k, float* __restrict__ out_d,
@@ -29,17 +32,22 @@ __global__ void merge_splits(const float* __restrict__ part_d,
     float bd = BIG;
     int bi = -1;
     for (int s = 0; s < S; ++s) {
-      for (int j = 0; j < k; ++j) {
-        const float cd = pd[s * k + j];
-        if (!(cd < BIG)) break;
-        const int ci = pi[s * k + j];
-        if (cd > prev_d || (cd == prev_d && ci > prev_i)) {
-          if (cd < bd || (cd == bd && ci < bi)) {
-            bd = cd;
-            bi = ci;
-          }
-          break;  // the list is sorted: its later entries come after this
-        }
+      const float* sd = pd + (size_t)s * k;
+      const int* si = pi + (size_t)s * k;
+      int lo = 0, hi = k;  // first entry not at or before (prev_d, prev_i)
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const float md = sd[mid];
+        if (md < prev_d || (md == prev_d && si[mid] <= prev_i)) lo = mid + 1;
+        else hi = mid;
+      }
+      if (lo == k) continue;
+      const float cd = sd[lo];
+      if (!(cd < BIG)) continue;
+      const int ci = si[lo];
+      if (cd < bd || (cd == bd && ci < bi)) {
+        bd = cd;
+        bi = ci;
       }
     }
     if (!(bd < BIG)) break;

@@ -29,6 +29,7 @@ import torch
 
 from ..core.hnsw import HnswIndex, HnswParams, _Builder
 from ..core.search import SearchConfig, favor_graph_search
+from ..device import resolve_device
 
 _MIN_PAD = 64     # smallest padded graph snapshot
 _SEED_SEQ = 32    # graph smaller than this links sequentially (wave <= n rule)
@@ -138,7 +139,6 @@ def bulk_add(index: HnswIndex, new_vectors: np.ndarray, *,
     The candidate searches run on ``device`` (None = the CUDA device,
     which raises without a card; pass "cpu" for the plain versions).
     """
-    from ..core.favor import resolve_device
     device = resolve_device(device)
     new_vectors = np.ascontiguousarray(new_vectors, np.float32)
     m = new_vectors.shape[0]

@@ -26,8 +26,16 @@ from ...core import filters as F
 
 TOPR, GATHER = "pq_adc_topr", "pq_adc_gather"
 LUT_DTYPES = (torch.float32, torch.bfloat16)
-_SMEM_TWO_BLOCKS = 112 * 1024    # two scan blocks per SM
-_SMEM_MAX = 226 * 1024           # one block per SM
+_SCREEN_TILES = (16, 8, 4)       # queries per block of the 8-bit screen
+QSUM_MAX = 32767                 # a pair's screen sum Q, at most
+
+
+def screen_levels(m: int) -> int:
+    """Levels of the kernel's 8-bit table entries at ``m`` subspaces:
+    ``min(255, 32767 // m)``, so that the sum of a row's ``m`` entries fits
+    a 16-bit lane with its top bit free (``csrc/pq_adc.cu``, "The
+    screen")."""
+    return 255 if m * 255 <= QSUM_MAX else QSUM_MAX // m
 
 
 def _lib():
@@ -36,15 +44,20 @@ def _lib():
         lib.pq_adc_topr_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-            + [ctypes.c_void_p] * 5)
+            + [ctypes.c_void_p] * 7)
         lib.pq_adc_topr_launch.restype = ctypes.c_int
         lib.pq_adc_gather_launch.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 8
             + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
         lib.pq_adc_gather_launch.restype = ctypes.c_int
-        lib.pq_adc_topr_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.pq_adc_topr_smem_bytes.argtypes = [ctypes.c_int] * 8
         lib.pq_adc_topr_smem_bytes.restype = ctypes.c_size_t
-        for fn in (lib.pq_adc_max_r, lib.pq_adc_max_qt, lib.pq_adc_tile_rows):
+        lib.pq_adc_screen_levels.argtypes = [ctypes.c_int]
+        lib.pq_adc_precheck_probe.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+        for fn in (lib.pq_adc_max_r, lib.pq_adc_max_qt, lib.pq_adc_tile_rows,
+                   lib.pq_adc_smem_limit, lib.pq_adc_screen_levels,
+                   lib.pq_adc_precheck_probe):
             fn.restype = ctypes.c_int
     return lib
 
@@ -56,44 +69,60 @@ def _check_luts(name, luts, b, m, dev):
     C.check(name, "luts", luts, luts.dtype, (b, m, None), dev)
 
 
-def _query_tile(lib, b: int, m: int, ksub: int, r: int) -> tuple[int, bool]:
-    """(queries per scan block, LUTs read from global memory): as many
-    queries as two blocks per SM can hold in shared memory with their LUTs,
-    else as many as one block can; when not even one query's LUT fits
-    beside its top-r list, the LUTs stay in global memory and only the
-    lists are staged."""
-    cap = min(b, lib.pq_adc_max_qt())
-    for lut_global in (False, True):
-        for budget in (_SMEM_TWO_BLOCKS, _SMEM_MAX):
-            for qt in range(cap, 0, -1):
-                if lib.pq_adc_topr_smem_bytes(m, ksub, r, qt,
-                                              int(lut_global)) <= budget:
-                    return qt, lut_global
+def _query_tile(lib, b: int, m: int, ksub: int, r: int,
+                prog: tuple[int, int, int]) -> tuple[int, bool]:
+    """(queries per scan block, screened): the 8-bit screen with the
+    widest query tile of 16, 8 or 4 whose table fits one block's shared
+    memory beside its top-r lists, filter programs (``prog`` = (W, m_i,
+    m_f)) and the kernel's static arrays (no wider than the batch needs);
+    else the no-table scan, which computes every pair's exact key from the
+    LUTs in global memory, with as many queries as its lists allow.  The
+    limit is the current device's opt-in shared memory per block."""
+    limit = lib.pq_adc_smem_limit()
+    need = next((qt for qt in reversed(_SCREEN_TILES) if qt >= b),
+                _SCREEN_TILES[0])
+    for qt in _SCREEN_TILES:
+        if qt <= need and lib.pq_adc_topr_smem_bytes(
+                m, ksub, r, qt, 1, *prog) <= limit:
+            return qt, True
+    for qt in range(min(b, lib.pq_adc_max_qt()), 0, -1):
+        if lib.pq_adc_topr_smem_bytes(m, ksub, r, qt, 0, *prog) <= limit:
+            return qt, False
     raise AssertionError(f"{TOPR}: a top-{r} list of at most "
                          f"{lib.pq_adc_max_r()} entries always fits")
 
 
 def _splits(q_tiles: int, n: int, sms: int, tile: int) -> int:
-    """DB splits: about sixteen blocks per SM over the whole grid, with at
-    least eight tiles of rows per split."""
-    want = max(1, -(-16 * sms // q_tiles))
-    return max(1, min(want, -(-n // (8 * tile)), 65535))
+    """DB splits (one block per SM): of the counts that give at most two
+    waves of blocks, the one whose last wave leaves the fewest SMs idle
+    (the smallest on ties), with at least eight tiles of rows per split."""
+    cap = max(1, min(-(-2 * sms // q_tiles), -(-n // (8 * tile)), 65535))
+
+    def fill(s):
+        blocks = q_tiles * s
+        return blocks / (sms * -(-blocks // sms))
+    return max(range(1, cap + 1), key=lambda s: (fill(s), -s))
 
 
 def pq_adc_topr(codes, norms, ints, floats, luts, programs, *, r: int = 40,
-                valid=None, chunk: int = 8192, after=None):
+                valid=None, chunk: int = 8192, after=None, screen_counts=None,
+                rescore_counts=None):
     """Fused compressed filtered top-R candidate scan.
 
-    codes (N, M) uint8; norms (N,) f32 (rows with norm +inf or >= BIG are
-    padding and never returned); ints (N, m_i) int32, floats (N, m_f) f32;
-    luts (B, M, K) f32 or bf16 from ``quant.adc.build_luts``; programs
-    {valid (B, W) f32, imask (B, W, m_i) int64, flo/fhi (B, W, m_f) f32};
-    ``after`` an optional per-query lower bound (after_d (B,) f32, after_i
-    (B,) int32): only pairs strictly after it in (distance, id) order are
-    returned.  CPU tensors run ``pq_adc_topr_plain`` (scan chunk
-    ``chunk``); CUDA tensors launch the kernel, in chained passes of its
-    longest list when R is larger (``_common.chain_topk``).  Returns (ids
-    (B, R), adc2 (B, R)).
+    codes (N, M) uint8 (each < K); norms (N,) f32 (rows with norm +inf or
+    >= BIG are padding and never returned); ints (N, m_i) int32, floats
+    (N, m_f) f32; luts (B, M, K) f32 or bf16 from ``quant.adc.build_luts``;
+    programs {valid (B, W) f32, imask (B, W, m_i) int64, flo/fhi (B, W,
+    m_f) f32}; ``after`` an optional per-query lower bound (after_d (B,)
+    f32, after_i (B,) int32): only pairs strictly after it in (distance,
+    id) order are returned.  CPU tensors run ``pq_adc_topr_plain`` (scan
+    chunk ``chunk``); CUDA tensors launch the kernel, in chained passes of
+    its longest list when R is larger (``_common.chain_topk``).
+    ``screen_counts`` and ``rescore_counts``, optional (B,) int32 CUDA
+    tensors, get each query's count of pairs that passed the kernel's
+    8-bit screen, and of pairs whose exact key it then computed, added to
+    them (the no-table scan computes every pair's key and counts the pairs
+    it passes on as the screen's).  Returns (ids (B, R), adc2 (B, R)).
     """
     if not C.on_cuda(luts):
         return pq_adc_topr_plain(codes, norms, ints, floats, luts, programs,
@@ -112,6 +141,10 @@ def pq_adc_topr(codes, norms, ints, floats, luts, programs, *, r: int = 40,
     if after is not None:
         C.check(TOPR, "after_d", after[0], torch.float32, (b,), dev)
         C.check(TOPR, "after_i", after[1], torch.int32, (b,), dev)
+    for label, cnt in (("screen_counts", screen_counts),
+                       ("rescore_counts", rescore_counts)):
+        if cnt is not None:
+            C.check(TOPR, label, cnt, torch.int32, (b,), dev)
     if r < 1:
         raise ValueError(f"{TOPR}: r={r} must be at least 1")
     if ksub > 256:
@@ -122,9 +155,7 @@ def pq_adc_topr(codes, norms, ints, floats, luts, programs, *, r: int = 40,
             torch.full((b, r), -1, dtype=torch.int32, device=dev),
             torch.full((b, r), C.BIG, dtype=torch.float32, device=dev), valid)
     rmax = lib.pq_adc_max_r()
-    qt, lut_global = _query_tile(lib, b, m, ksub, min(r, rmax))
-    if lut_global:          # the kernel reads f32 tables from global memory
-        luts = luts.float()  # (exact: the kernel widens bf16 anyway)
+    qt, screened = _query_tile(lib, b, m, ksub, min(r, rmax), (w, mi, mf))
     q_tiles = -(-b // qt)
     splits = _splits(q_tiles, n, torch.cuda.get_device_properties(
         dev).multi_processor_count, lib.pq_adc_tile_rows())
@@ -137,12 +168,15 @@ def pq_adc_topr(codes, norms, ints, floats, luts, programs, *, r: int = 40,
         ad, ai = (None, None) if aft is None else (C.ptr(aft[0]),
                                                    C.ptr(aft[1]))
         status = lib.pq_adc_topr_launch(
-            C.ptr(luts), int(luts.dtype == torch.bfloat16), int(lut_global),
+            C.ptr(luts), int(luts.dtype == torch.bfloat16), int(screened),
             C.ptr(codes), C.ptr(norms), C.ptr(ints), C.ptr(floats),
             C.ptr(programs["valid"]), C.ptr(programs["imask"]),
             C.ptr(programs["flo"]), C.ptr(programs["fhi"]), ad, ai, b, n, m,
-            ksub, mi, mf, w, rr, qt, splits, C.ptr(part_d), C.ptr(part_i),
-            C.ptr(out_d), C.ptr(out_i), C.stream_ptr(dev))
+            ksub, mi, mf, w, rr, qt, splits,
+            None if screen_counts is None else C.ptr(screen_counts),
+            None if rescore_counts is None else C.ptr(rescore_counts),
+            C.ptr(part_d), C.ptr(part_i), C.ptr(out_d), C.ptr(out_i),
+            C.stream_ptr(dev))
         check_status(TOPR, status)
         count_launch(TOPR)
         return out_i, out_d

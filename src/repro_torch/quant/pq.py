@@ -13,9 +13,11 @@ compression, no training beyond a min/max pass.
 Codebooks hold numpy arrays (host state, like ``HnswIndex``) and round-trip
 through one ``.npz`` in the JAX package's layout (``save_codebook`` /
 ``load_codebook``).  ``train_pq``, ``encode`` and ``decode`` run in torch on
-the device they are given.  torch's generator cannot reproduce
-``jax.random.choice``, so the port's k-means starts from other centroids
-than the JAX package's and is held to it on recall, not on bits.
+the device they are given; ``train_pq`` and ``encode`` of host data default
+to the CUDA device (``device="cpu"`` runs them on the host).  torch's
+generator cannot reproduce ``jax.random.choice``, so the port's k-means
+starts from other centroids than the JAX package's and is held to it on
+recall, not on bits.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels._common import no_tf32
 
 
@@ -120,14 +123,15 @@ def _lloyd_step(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def train_pq(vectors, m: int = 8, nbits: int = 8, *, iters: int = 20,
-             sample: int = 65536, seed: int = 0, device="cpu") -> PQCodebook:
+             sample: int = 65536, seed: int = 0, device=None) -> PQCodebook:
     """Train an M x 2^nbits PQ codebook on (a sample of) the dataset, on
-    ``device``.  The sample rows are drawn as the JAX package draws them
-    (numpy, ``seed``); each subspace starts from K distinct sample rows
-    picked by a ``torch.Generator`` seeded with ``seed``."""
+    ``device`` (None: the CUDA device, which raises without a card).  The
+    sample rows are drawn as the JAX package draws them (numpy, ``seed``);
+    each subspace starts from K distinct sample rows picked by a
+    ``torch.Generator`` seeded with ``seed``."""
     if not 1 <= nbits <= 8:
         raise ValueError("codes are uint8: nbits must be in [1, 8]")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     no_tf32(dev)
     vectors = np.asarray(vectors.cpu() if isinstance(vectors, torch.Tensor)
                          else vectors, np.float32)
@@ -171,11 +175,12 @@ def train_sq(vectors) -> SQCodebook:
 # ---------------------------------------------------------------------------
 def encode(cb: PQCodebook | SQCodebook, vectors, chunk: int = 65536, *,
            device=None) -> torch.Tensor:
-    """Vectors (N, d) -> uint8 codes on ``device`` (default: the vectors'
-    device, the CPU for numpy): (N, M) for PQ, (N, d) for SQ."""
-    if device is None:
-        device = vectors.device if isinstance(vectors, torch.Tensor) else "cpu"
-    dev = torch.device(device)
+    """Vectors (N, d) -> uint8 codes on ``device`` (default: a tensor's own
+    device; for numpy input the CUDA device, which raises without a card):
+    (N, M) for PQ, (N, d) for SQ."""
+    if device is None and isinstance(vectors, torch.Tensor):
+        device = vectors.device
+    dev = resolve_device(device)
     x = _as_f32(vectors, dev)
     if isinstance(cb, SQCodebook):
         lo = torch.as_tensor(cb.lo, device=dev)

@@ -19,6 +19,7 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import filters as PF  # noqa: E402
 from repro_torch.core import prefbf  # noqa: E402
 from repro_torch.core.router import compile_programs  # noqa: E402
+from repro_torch.kernels import _common as KC  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as eb  # noqa: E402
 from repro_torch.kernels.filtered_topk import ops as ft  # noqa: E402
 from repro_torch.kernels.gather_distance import ops as gd  # noqa: E402
@@ -245,9 +246,11 @@ def _pq_case(dev, n, b, m, nbits, seed, n_pad=0, schema_kw=None,
 @pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,b,m,nbits,r,n_pad", [
     (5000, 37, 8, 6, 40, 100),        # CPU-test widths, pad rows
-    (200_000, 64, 32, 8, 80, 0),      # favor-anns widths: 3 x 32 KB LUTs
-    (3000, 5, 64, 8, 20, 0),          # one 64 KB LUT per block
+    (200_000, 64, 32, 8, 80, 0),      # favor-anns widths: 16-query tiles
+    (3000, 5, 64, 8, 20, 0),          # 8-query tile of 16 KB tables
     (777, 9, 6, 5, 33, 0),            # M not a multiple of 4 (byte path)
+    (40_000, 21, 30, 8, 80, 64),      # M = 30: bytes; B not a tile multiple
+    (9000, 3, 240, 4, 16, 0),         # M = 240 x K = 16: 4-query table
 ])
 def test_pq_adc_topr_kernel_matches_plain(dev, n, b, m, nbits, r, n_pad,
                                           lut_dtype):
@@ -331,7 +334,8 @@ def test_pq_kernels_zero_width_attributes(dev, schema_kw):
 @pytest.mark.parametrize("n,b,m,r", [
     (20000, 6, 8, 1025),        # R above the longest list: chained passes
     (20000, 4, 32, 1600),       # favor-anns' M at R = 1600
-    (3000, 5, 240, 80),         # M = 240 x K = 256: LUTs from global memory
+    (20000, 19, 32, 1024),      # the longest list in one pass
+    (3000, 5, 240, 80),         # M = 240 x K = 256: the no-table scan
     (3000, 3, 240, 1600),       # both
 ])
 def test_pq_adc_topr_long_lists_and_wide_luts(dev, n, b, m, r, lut_dtype):
@@ -344,8 +348,173 @@ def test_pq_adc_topr_long_lists_and_wide_luts(dev, n, b, m, r, lut_dtype):
     assert int(kid.max()) < n - 50
 
 
+def _screen_tables(kind, b, m, ksub, rng):
+    """The LUTs of tests/test_torch_pq_screen.py's cases."""
+    luts = rng.uniform(0.0, 4.0, size=(b, m, ksub))
+    if kind == "wide_subspace":         # one range 10^4 times the others
+        luts[:, m // 2] *= 1e4
+    elif kind == "flat":                # every entry equal: D = 0
+        luts[:] = rng.uniform(0.5, 2.0, size=(b, 1, 1))
+    elif kind == "negative":
+        luts -= 3.0
+    elif kind == "offset":              # f32 chain error >> the step D
+        luts = 1e5 + luts * 0.25
+    elif kind == "nonfinite":           # +inf and nan entries: unscreened
+        luts[0, 1, 3] = np.inf
+        luts[1, 0, 0] = np.nan
+    return luts.astype(np.float32)
+
+
 @pytest.mark.cuda
-def test_pq_wrappers_reject_bad_inputs(dev):
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,m,ksub", [
+    ("random", 32, 256), ("random", 8, 16), ("random", 30, 256),
+    ("random", 64, 16), ("random", 240, 16), ("random", 240, 256),
+    ("wide_subspace", 32, 256), ("flat", 32, 256), ("offset", 32, 256),
+    ("negative", 30, 16), ("nonfinite", 32, 256)])
+def test_pq_adc_topr_screen_tables_match_plain(dev, kind, m, ksub,
+                                               lut_dtype):
+    """The 8-bit screen's hard tables (the CPU emulation's cases) at 30,000
+    rows and 21 queries, with pad rows, a valid mask and filters from
+    ``true`` to < 1 %: the kernel returns the plain version's bits, and
+    its counters lie in their possible ranges."""
+    n, b, r = 30_000, 21, 40
+    codes, norms, ints, floats, _, progs, rng = _pq_case(
+        dev, n, b, m, 8 if ksub == 256 else 4, seed=m + ksub, n_pad=64)
+    luts = torch.as_tensor(_screen_tables(kind, b, m, ksub, rng),
+                           device=dev).to(lut_dtype)
+    valid = torch.ones(b, dtype=torch.bool, device=dev)
+    valid[3] = False
+    cands = torch.zeros(b, dtype=torch.int32, device=dev)
+    exact = torch.zeros(b, dtype=torch.int32, device=dev)
+    kid, kd = pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=r,
+                             valid=valid, screen_counts=cands,
+                             rescore_counts=exact)
+    pid, pd = pq.pq_adc_topr_plain(codes, norms, ints, floats, luts, progs,
+                                   r=r, valid=valid)
+    assert torch.equal(kid, pid) and torch.equal(kd, pd)
+    assert int(kid.max()) < n - 64
+    c, x = cands.cpu().numpy(), exact.cpu().numpy()
+    assert (c <= n - 64).all() and (x <= c).all() and (c >= 1).all()
+    if kind == "nonfinite":                  # unscreened: every live row
+        assert (c[:2] == n - 64).all()
+    if kind == "random" and ksub == 256 and m <= 32:
+        # the screen does screen: `true` queries (every sixth, from the
+        # fourth) see a few hundred candidates per split, not every row
+        assert (c[3::6] < 0.25 * n).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 80, 1024, 1600])
+def test_pq_adc_topr_filters_and_list_lengths(dev, r):
+    """favor-anns' widths (M = 32, K = 256, f32 LUTs from build_luts) over
+    50,000 rows, 37 queries (not a multiple of the 16-query tile), the six
+    filters of _case from ``true`` to < 1 %, and R from 1 to 1600."""
+    from repro_torch.quant.adc import build_luts
+    n, b = 50_000, 37
+    db, qs, progs, rng = _case(dev, n, 32, b, seed=r, pad_to=n + 100)
+    _, norms, ints, floats = db
+    codes = torch.as_tensor(rng.integers(0, 256, size=(norms.shape[0], 32),
+                                         dtype=np.uint8), device=dev)
+    cents = torch.as_tensor(rng.normal(size=(32, 256, 1)).astype(np.float32),
+                            device=dev)
+    luts = build_luts(cents, qs)
+    kid, kd = pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=r)
+    pid, pd = pq.pq_adc_topr_plain(codes, norms, ints, floats, luts, progs,
+                                   r=r)
+    assert torch.equal(kid, pid) and torch.equal(kd, pd)
+    assert int(kid.max()) < n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_pq_adc_topr_query_tile_boundary(dev, width):
+    """R swept across the list length at which the 16-query tile stops
+    fitting one block's shared memory (dynamic layout plus the kernel's
+    static arrays) at favor-anns' M = 32 x K = 256: every R runs, with the
+    plain version's bits, and the sweep crosses from 16 to 8 queries."""
+    n, b = 6000, 17
+    db, _, _, rng = _case(dev, n, 32, b, seed=width)
+    _, norms, ints, floats = db
+    schema = PF.paper_schema()
+    pool = [PF.TrueFilter(), PF.Range("f0", 10.0, 60.0),
+            PF.Inclusion("i0", [1, 5, 9]), PF.Equality("b0", True)]
+    progs = compile_programs([pool[i % len(pool)] for i in range(b)], schema,
+                             b, width, device=dev)
+    codes = torch.as_tensor(rng.integers(0, 256, size=(n, 32), dtype=np.uint8),
+                            device=dev)
+    luts = torch.as_tensor(rng.uniform(0, 4.0, size=(b, 32, 256)),
+                           dtype=torch.float32, device=dev)
+    tiles = set()
+    for r in range(190, 207):
+        tiles.add(pq._query_tile(pq._lib(), b, 32, 256, r,
+                                 (width, ints.shape[1], floats.shape[1])))
+        kid, kd = pq.pq_adc_topr(codes, norms, ints, floats, luts, progs, r=r)
+        pid, pd = pq.pq_adc_topr_plain(codes, norms, ints, floats, luts,
+                                       progs, r=r)
+        assert torch.equal(kid, pid) and torch.equal(kd, pd), r
+    assert tiles == {(16, True), (8, True)}, tiles
+
+
+@pytest.mark.cuda
+def test_pq_screen_constants_match_kernel(dev):
+    """The wrapper's copies of the kernel's screen constants (levels per M,
+    the query tiles) agree with the library's."""
+    lib = pq._lib()
+    for m in [*range(1, 1025), pq.QSUM_MAX, pq.QSUM_MAX + 1]:
+        assert lib.pq_adc_screen_levels(m) == pq.screen_levels(m), m
+    assert max(pq._SCREEN_TILES) == lib.pq_adc_max_qt()
+    for qt in pq._SCREEN_TILES:
+        assert lib.pq_adc_topr_smem_bytes(32, 256, 80, qt, 1, 8, 2, 1) \
+            < lib.pq_adc_smem_limit()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mi,mf", [(2, 1), (6, 0), (0, 5), (6, 6)])
+def test_pq_precheck_is_necessary_for_the_filter(dev, mi, mf):
+    """The scan's pre-check (favor::build_hull / may_pass) holds to the
+    filter program (favor::eval_row) over random programs and rows: a row
+    that passes the program always passes the pre-check.  The programs have
+    up to 8 disjuncts, some dead, NaN and inverted intervals, and up to 6
+    columns of each kind (more than the pre-check reads); the rows have
+    ints outside [0, 32) and NaN / infinite floats.  eval_row also equals
+    the plain evaluator."""
+    rng = np.random.default_rng(7 * mi + mf)
+    b, n, w = 96, 4000, 8
+    valid = rng.choice([1.0, 1.0, 0.0, -1.0, np.nan], size=(b, w))
+    # sparse masks, some full: a few allowed values per column
+    imask = np.where(rng.random((b, w, mi)) < 0.1, (1 << 32) - 1,
+                     rng.integers(0, 1 << 32, size=(b, w, mi))
+                     & rng.integers(0, 1 << 32, size=(b, w, mi)))
+    lo = rng.uniform(-50, 100, size=(b, w, mf))
+    hi = lo + rng.uniform(-10, 60, size=(b, w, mf))
+    lo[rng.random(lo.shape) < 0.05] = np.nan
+    hi[rng.random(hi.shape) < 0.05] = -np.inf
+    # every fourth query's first disjunct admits each row whose ints lie in
+    # [0, 32) and whose floats are finite, so rows pass at any column count
+    valid[::4, 0] = 1.0
+    imask[::4, 0] = (1 << 32) - 1
+    lo[::4, 0], hi[::4, 0] = -100.0, 200.0
+    ints = rng.integers(-2, 36, size=(n, mi))
+    floats = rng.uniform(-60, 160, size=(n, mf))
+    floats[rng.random(floats.shape) < 0.02] = np.nan
+    floats[rng.random(floats.shape) < 0.02] = np.inf
+    progs = {"valid": torch.as_tensor(valid, dtype=torch.float32, device=dev),
+             "imask": torch.as_tensor(imask, dtype=torch.int64, device=dev),
+             "flo": torch.as_tensor(lo, dtype=torch.float32, device=dev),
+             "fhi": torch.as_tensor(hi, dtype=torch.float32, device=dev)}
+    ti = torch.as_tensor(ints, dtype=torch.int32, device=dev)
+    tf = torch.as_tensor(floats, dtype=torch.float32, device=dev)
+    out = torch.empty((b, n), dtype=torch.int32, device=dev)
+    status = pq._lib().pq_adc_precheck_probe(
+        *(KC.ptr(progs[k]) for k in ("valid", "imask", "flo", "fhi")),
+        KC.ptr(ti), KC.ptr(tf), b, n, w, mi, mf, KC.ptr(out),
+        KC.stream_ptr(dev))
+    K.check_status("pq_adc_precheck_probe", status)
+    passes, may = (out & 1).bool(), (out & 2).bool()
+    assert torch.equal(passes, PF.eval_program_batched(progs, ti, tf))
+    assert not (passes & ~may).any()
+    assert passes.any() and (~may).any()         # neither side is trivial
     codes, norms, ints, floats, luts, progs, _ = _pq_case(dev, 100, 4, 8, 6,
                                                           seed=1)
     with pytest.raises(ValueError, match="dtype"):
@@ -387,8 +556,8 @@ def test_embedding_bag_kernel_matches_plain(dev, v, d, b, l, mode):
 def test_kernels_bits_do_not_depend_on_tile_mates(dev, b, sub):
     """Bucket padding's bar on the card: a query's ids and distances are the
     same bits whichever lanes share its tile (128-query tiles in
-    ``filtered_topk``, three-query tiles in ``pq_adc_topr``) and whatever
-    pad lanes ride beside it."""
+    ``filtered_topk``, 16-query tiles -- 4 or 8 for a small batch -- in
+    ``pq_adc_topr``) and whatever pad lanes ride beside it."""
     from repro_torch.core.batching import BatchSpec, pad_to_bucket
     db, qs, progs, rng = _case(dev, 5000, 128, b, seed=b, pad_to=8192)
     idx = torch.as_tensor(sub, device=dev)

@@ -244,7 +244,7 @@ def test_encode_decode_match_reference(ref_codebook):
     assert (pcb.m, pcb.ksub, pcb.dsub, pcb.nbits, pcb.padded_dim) == \
         (cb.m, cb.ksub, cb.dsub, cb.nbits, cb.padded_dim)
     ref = rq.encode(cb, x)
-    got = pq.encode(pcb, x, chunk=512)
+    got = pq.encode(pcb, x, chunk=512, device="cpu")
     assert got.dtype == torch.uint8 and got.shape == ref.shape
     # nearest-centroid ties at 1e-5 may go either way; on this data none do
     assert (got.numpy() == ref).mean() == 1.0
@@ -257,7 +257,7 @@ def test_sq_matches_reference():
     rcb, pcb = rq.train_sq(x), pq.train_sq(x)
     np.testing.assert_array_equal(pcb.lo, rcb.lo)
     np.testing.assert_array_equal(pcb.scale, rcb.scale)
-    codes = pq.encode(pcb, x)
+    codes = pq.encode(pcb, x, device="cpu")
     np.testing.assert_array_equal(codes.numpy(), rq.encode(rcb, x))
     np.testing.assert_array_equal(pq.decode(pcb, codes).numpy(),
                                   rq.decode(rcb, codes.numpy()))
@@ -283,11 +283,12 @@ def test_train_pq_on_torch():
     the exact ones as closely as the JAX package's own bar
     (``tests/test_quant.py``), and deterministic for a seed."""
     x, rng = _data(1500, 16, seed=5)
-    cb = pq.train_pq(x, m=8, nbits=6, iters=10, seed=0)
+    cb = pq.train_pq(x, m=8, nbits=6, iters=10, seed=0, device="cpu")
     assert cb.centroids.shape == (8, 64, 2) and cb.dim == 16
-    again = pq.train_pq(x, m=8, nbits=6, iters=10, seed=0)
+    again = pq.train_pq(x, m=8, nbits=6, iters=10, seed=0,
+                        device="cpu")
     np.testing.assert_array_equal(cb.centroids, again.centroids)
-    codes = pq.encode(cb, x)
+    codes = pq.encode(cb, x, device="cpu")
     qs = torch.as_tensor(rng.normal(size=(8, 16)).astype(np.float32))
     luts = p_adc.build_luts(torch.as_tensor(cb.centroids), qs)
     ids = torch.arange(1500, dtype=torch.int32).expand(8, -1).contiguous()

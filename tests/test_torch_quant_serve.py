@@ -80,11 +80,13 @@ def serve():
                                  p_progs, torch.as_tensor(centroids),
                                  p_db[0], k=K, rerank=RERANK)[0].numpy()
 
-    own_cb = pq.train_pq(vecs, m=PQ_M, nbits=PQ_BITS, seed=0)
+    own_cb = pq.train_pq(vecs, m=PQ_M, nbits=PQ_BITS, seed=0,
+                         device="cpu")
     out = {"names": np.asarray(names),
            "jax": recall(r_ids),
            "port_own_kmeans": recall(port_scan(own_cb.centroids,
-                                               pq.encode(own_cb, db[0]))),
+                                               pq.encode(own_cb, db[0],
+                                                         device="cpu"))),
            "r_ids": np.asarray(r_ids),
            "carried_ids": port_scan(r_cents, torch.as_tensor(r_codes)),
            "carried": (r_cents, torch.as_tensor(r_codes), p_db,

@@ -86,6 +86,25 @@ def test_load_defaults_to_cuda(monkeypatch, tmp_path):
         FavorIndex.load(str(tmp_path / "ix"))
 
 
+def test_codebook_helpers_default_to_cuda(monkeypatch):
+    """``quant.train_pq`` and ``quant.encode`` of host (numpy) data run on
+    the card unless the caller asks for the CPU: without a card they raise
+    when no device is given, and run when ``device="cpu"`` is."""
+    from repro_torch import quant
+    vecs, _ = _tiny()
+    cb = quant.train_pq(vecs, m=4, nbits=4, iters=2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quant.train_pq(vecs, m=4, nbits=4, iters=2)
+    for book in (cb, quant.train_sq(vecs)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            quant.encode(book, vecs)
+        codes = quant.encode(book, vecs, device="cpu")
+        assert codes.device.type == "cpu"
+        # a tensor's own device stays the default
+        assert quant.encode(book, torch.as_tensor(vecs)).device.type == "cpu"
+
+
 def _kernel_args(b=3, n=40, d=8):
     rng = np.random.default_rng(2)
     attrs = PF.random_attributes(PF.paper_schema(), n, seed=3)
