@@ -16,7 +16,10 @@ no result):
            (filtered_topk on the whole batch in both modes, with its TF32
            screen's candidates per query by scenario and the screen's own
            bound; filtered_topk at k = 100 and pq_adc_topr at R = 1600,
-           chained passes, on a 64-query subset);
+           chained passes, on a 64-query subset; the two gather kernels by
+           graph replay after an L2 flush, after a clean L2 refill and --
+           pq_adc_gather -- with warm LUTs, beside a one-element kernel's
+           time under each, and a design bound counting 32-byte sectors);
   serve    FavorIndex.build on a synthetic paper dataset (HNSW M=16, host
            build) with favor-anns' QuantSpec (PQ m=32, nbits=8, rerank=8;
            the codebook trained on the card), then FavorIndex.query for
@@ -42,7 +45,12 @@ no result):
            1,024 deletes, a query batch (no deleted id, brute recall@10
            1.0 against exact ground truth over the live rows, graph recall
            within 0.02 of the f32 pass), ``merge()`` timed, and the batch
-           again; the launches of each kernel for each step.
+           again; the launches of each kernel for each step;
+  widths   the graph route's two gather kernels at every (B, M) width the
+           serve phase launched them at (each pass counts its launches by
+           width), on the kernel phase's rows: held to their plain versions
+           and timed beside their bounds, and launches x (ms - bound)
+           summed over each histogram.
 
 Then a ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and as the last line
@@ -331,46 +339,118 @@ def phase_kernels(dev, rates):
     check(bool(torch.equal(ktd, ptd)), "gather_distance TD bits vs plain")
     scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     flush = scratch.zero_         # rows of a real traversal come from HBM
+    sweep = torch.ones(64 * 2**20, dtype=torch.uint8, device=dev)
+
+    def clean():
+        """L2 refilled with clean lines: ``flush`` leaves it dirty, and the
+        next kernel pays for the write-back (``floor_ms``)."""
+        sweep.sum()
+    one = torch.zeros(1, device=dev)
+    floors = {"floor_ms": graph_ms(lambda: one.fill_(1.0),
+                                   repeats=2 * REPEATS, flush=flush),
+              "floor_ms_clean": graph_ms(lambda: one.fill_(1.0),
+                                         repeats=2 * REPEATS, flush=clean)}
     gd_call_ms = cuda_ms(lambda: gd.gather_distance(pv, pn, pi, pf, qs, ids_t,
                                                     progs, dvec),
                          repeats=2 * REPEATS, flush=flush)
     gd_ms = graph_ms(lambda: gd.gather_distance(pv, pn, pi, pf, qs, ids_t,
                                                 progs, dvec),
                      repeats=2 * REPEATS, flush=flush)
+    gd_clean_ms = graph_ms(lambda: gd.gather_distance(
+        pv, pn, pi, pf, qs, ids_t, progs, dvec), repeats=2 * REPEATS,
+        flush=clean)
     gd_plain_ms = graph_ms(lambda: gd.gather_distance_plain(
         pv, pn, pi, pf, qs, ids_t, progs, dvec), repeats=10, flush=flush)
-    n_valid = int((ids >= 0).sum())
-    gd_bytes = (n_valid * row_bytes + ids.size * 4 + b * d * 4 + prog_bytes
-                + b * 4 + ids.size * 8)
-    gd_ops = 2 * n_valid * d
-    gd_bound = 1e3 * max(gd_bytes / rates["hbm_bytes_per_s"],
-                         gd_ops / rates["f32_flops"])
     kernels["gather_distance"] = {
         "name": "gather_distance", "route": "cuda",
         "source": "src/repro_torch/csrc/gather_distance.cu",
         "replaces": "src/repro/kernels/gather_distance/kernel.py:63",
-        "max_abs_err": gd_err, "ms": gd_ms, "call_ms": gd_call_ms,
-        "plain_ms": gd_plain_ms,
-        "bound_ms": gd_bound,
-        "bound_by": ("operations" if gd_ops / rates["f32_flops"]
-                     >= gd_bytes / rates["hbm_bytes_per_s"] else "bytes"),
+        "max_abs_err": gd_err, "ms": gd_ms, "ms_clean": gd_clean_ms,
+        **floors, "call_ms": gd_call_ms, "plain_ms": gd_plain_ms,
+        **gd_bounds(rates, ids_t, d, mi, mf, progs),
         "library_ms": None,
-        "shape": {"B": b, "M0": M0, "N": n, "d": d, "valid_ids": n_valid},
+        "shape": {"B": b, "M0": M0, "N": n, "d": d,
+                  "valid_ids": int((ids >= 0).sum())},
     }
+    gathers = {"pv": pv, "pn": pn, "pi": pi, "pf": pf, "qs": qs,
+               "progs": progs, "dvec": dvec, "ids": ids_t, "flush": flush,
+               "clean": clean, "floors": floors}
     kernels.update(pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec,
-                              ids_t, n, flush, scen))
+                              ids_t, n, flush, scen, gathers))
     emit({"phase": "kernels", "setup_s": setup_s, "rates": rates_used,
           **{name: {k: v for k, v in row.items() if k != "name"}
              for name, row in kernels.items()},
           "filtered_topk_vs_plain": out,
           "launches_outside_main_path": dict(Kn.launch_counts)})
-    del pv, pn, pi, pf, scratch
-    torch.cuda.empty_cache()
-    return kernels
+    return kernels, gathers
+
+
+def sector_bytes(nbytes: int) -> int:
+    """Bytes a scattered read of ``nbytes`` moves: whole 32-byte sectors."""
+    return 32 * -(-nbytes // 32)
+
+
+def gd_bounds(rates, ids, d, mi, mf, progs) -> dict:
+    """``gather_distance``'s bounds for the id block ``ids`` (B, M): the
+    data sheet's (each valid id's row, norm and attributes, the ids, the
+    queries, programs and D, dbar and the TD byte out) and the design's
+    (the same, each scattered read in whole 32-byte sectors)."""
+    b = ids.shape[0]
+    n_valid = int((ids >= 0).sum())
+    prog_bytes = sum(v.numel() * v.element_size() for v in progs.values())
+    dense = (ids.numel() * ids.element_size() + b * (d + 1) * 4 + prog_bytes
+             + ids.numel() * 5)
+    scattered = n_valid * 4 * (d + 1 + mi + mf)
+    design = n_valid * (sector_bytes(4 * d) + sector_bytes(4)
+                        + sector_bytes(4 * mi) + sector_bytes(4 * mf))
+    ops = 2 * n_valid * d
+    ops_s = ops / rates["f32_flops"]
+    bytes_s = (dense + scattered) / rates["hbm_bytes_per_s"]
+    return {"bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "bound_ms_design": 1e3 * max(
+                (dense + design) / rates["hbm_bytes_per_s"], ops_s)}
+
+
+def pq_gather_bounds(rates, ids, codes, luts, mi, mf, progs) -> dict:
+    """``pq_adc_gather``'s bounds for the id block ``ids`` (B, M0) against
+    ``luts`` (B, M, K): the data sheet's (each valid id's code row and
+    attributes, one table entry per lookup, the ids, programs and D, dbar
+    and the TD byte out), and the design's: each scattered read in whole
+    32-byte sectors, the tables as the 32-byte sectors the batch's lookups
+    touch (counted from this run's ids and codes) -- and, warm, without
+    the tables, which the traversal reads from L2 wave after wave."""
+    import torch
+    b = ids.shape[0]
+    m, ksub = luts.shape[1], luts.shape[2]
+    ok = ids >= 0
+    n_valid = int(ok.sum())
+    prog_bytes = sum(v.numel() * v.element_size() for v in progs.values())
+    dense = ids.numel() * ids.element_size() + prog_bytes + b * 4 \
+        + ids.numel() * 5
+    scattered = n_valid * (m + luts.element_size() * m + 4 * (mi + mf))
+    cc = codes[ids.clamp(min=0).long()].long()                # (B, M0, M)
+    entry = (torch.arange(b, device=ids.device)[:, None, None] * m * ksub
+             + torch.arange(m, device=ids.device) * ksub + cc)
+    lut_sectors = int(torch.unique(
+        entry[ok] * luts.element_size() // 32).numel())
+    rows = n_valid * (sector_bytes(m) + sector_bytes(4 * mi)
+                      + sector_bytes(4 * mf))
+    ops = n_valid * m
+    ops_s = ops / rates["f32_flops"]
+    bytes_s = (dense + scattered) / rates["hbm_bytes_per_s"]
+    hbm = rates["hbm_bytes_per_s"]
+    return {"bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "bound_ms_design": 1e3 * max(
+                (dense + rows + 32 * lut_sectors) / hbm, ops_s),
+            "bound_ms_design_warm": 1e3 * max((dense + rows) / hbm, ops_s),
+            "lut_sectors_touched": lut_sectors,
+            "lut_sectors_total": b * m * ksub * luts.element_size() // 32}
 
 
 def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
-               flush, scen):
+               flush, scen, gathers):
     """pq_adc_topr (f32 LUTs, R = rerank * k) and pq_adc_gather (bf16
     LUTs, filter mode as the traversal calls it) over favor-anns' PQ codes
     of the kernel phase's rows: codes and centroids drawn from the seed,
@@ -499,27 +579,32 @@ def pq_kernels(dev, rates, rng, pn, pi, pf, qs, progs, dvec, ids_t, n,
     check(bool((diff <= ATOL + RTOL * pd[fin].abs()).all()),
           f"pq_adc_gather vs plain: max abs diff {g_err}")
     check(bool(torch.equal(ktd, ptd)), "pq_adc_gather TD bits vs plain")
+    check(bool(torch.equal(kd, pd)), "pq_adc_gather vs plain: not "
+          "bit-identical")
+
+    def warm():                   # a clean L2, then the tables read once
+        gathers["clean"]()
+        lb.sum()
     call_ms = cuda_ms(gather, repeats=2 * REPEATS, flush=flush)
     g_ms = graph_ms(gather, repeats=2 * REPEATS, flush=flush)
+    g_clean_ms = graph_ms(gather, repeats=2 * REPEATS,
+                          flush=gathers["clean"])
+    g_warm_ms = graph_ms(gather, repeats=2 * REPEATS, flush=warm)
     g_plain_ms = graph_ms(gather_plain, repeats=10, flush=flush)
-    n_valid = int((ids_t >= 0).sum())
-    g_bytes = (ids_t.numel() * 4 + n_valid * (PQ_M + 2 * PQ_M + 4 * (mi + mf))
-               + prog_bytes + b * 4 + ids_t.numel() * 8)
-    g_ops = n_valid * PQ_M
     out["pq_adc_gather"] = {
         "name": "pq_adc_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/pq_adc.cu",
         "replaces": "src/repro/kernels/pq_adc/kernel.py:127",
-        "max_abs_err": g_err, "ms": g_ms, "call_ms": call_ms,
+        "max_abs_err": g_err, "ms": g_ms, "ms_clean": g_clean_ms,
+        "ms_warm_luts": g_warm_ms, **gathers["floors"], "call_ms": call_ms,
         "plain_ms": g_plain_ms,
-        "bound_ms": 1e3 * max(g_bytes / rates["hbm_bytes_per_s"],
-                              g_ops / rates["f32_flops"]),
-        "bound_by": ("operations" if g_ops / rates["f32_flops"]
-                     >= g_bytes / rates["hbm_bytes_per_s"] else "bytes"),
+        **pq_gather_bounds(rates, ids_t, codes, lb, mi, mf, progs),
         "library_ms": None,
         "shape": {"B": b, "M0": ids_t.shape[1], "N": n, "M": PQ_M,
-                  "K": ksub, "valid_ids": n_valid, "lut": "bf16"},
+                  "K": ksub, "valid_ids": int((ids_t >= 0).sum()),
+                  "lut": "bf16"},
     }
+    gathers.update(codes=codes, lb=lb, warm=warm)
     return out
 
 
@@ -639,6 +724,9 @@ def serve_pass(fi, opts, qs, flts, names, truth, label: str):
     res = fi.query(qs, flts, opts)
     walls = [time.perf_counter() - t0]
     launches = dict(Kn.launch_counts)
+    widths = {k: {f"{b}x{m}": c for (b, m), c in sorted(
+        v.items(), key=lambda kv: -kv[1])}
+        for k, v in Kn.launch_widths.items() if v}
     for _ in range(SERVE_REPEATS - 1):
         t0 = time.perf_counter()
         again = fi.query(qs, flts, opts)
@@ -684,7 +772,7 @@ def serve_pass(fi, opts, qs, flts, names, truth, label: str):
         "options": {k: (vars(v) if k == "batch" else v)
                     for k, v in vars(opts).items() if v is not None},
         "brute": int(brute.sum()), "graph": int((~brute).sum()),
-        "launches": launches, "batch_ms": walls_ms,
+        "launches": launches, "launch_widths": widths, "batch_ms": walls_ms,
         "p50_ms": float(np.percentile(walls_ms, 50)),
         "p99_ms": float(np.percentile(walls_ms, 99)),
         "qps": b / statistics.median(walls),
@@ -868,8 +956,15 @@ def phase_serve(dev):
     launches = {"f32": lines["f32"]["launches"],
                 "use_pq": lines["use_pq"]["launches"],
                 "use_pq+graph_pq": lines["use_pq+graph_pq"]["launches"]}
+    # the graph route's gather launches by (B, M), on the pass of the main
+    # path that runs each
+    widths = {"gather_distance":
+              lines["f32"]["launch_widths"].get("gather_distance", {}),
+              "pq_adc_gather":
+              lines["use_pq+graph_pq"]["launch_widths"].get("pq_adc_gather",
+                                                            {})}
     phase_live(dev, fi, qs, flts, float(rec32[~br32].mean()))
-    return launches
+    return launches, widths
 
 
 def same_bits(a, b) -> bool:
@@ -1047,6 +1142,94 @@ def phase_live(dev, fi, qs, flts, f32_graph_recall: float):
           **steps})
 
 
+def phase_widths(rates, kernels, gathers, widths, top: int = 3) -> None:
+    """Both gather kernels at every (B, M) width the serve phase launched
+    them at, on the kernel phase's rows and the first B queries and M ids
+    of its batch: each held to its plain version (1e-5 and TD equal;
+    ``pq_adc_gather`` bit for bit) and timed by graph replay with L2
+    flushed, and with L2 refilled clean (``pq_adc_gather`` also with warm
+    LUTs) beside its bounds at that width.  Adds to each kernel's row the launches x (ms - bound)
+    summed over its histogram, and the ``top`` widths that carry most
+    launches (with the eager call's time).  ``widths`` lists each kernel's
+    widths busiest first."""
+    import torch
+
+    from repro_torch.kernels.gather_distance import ops as gd
+    from repro_torch.kernels.pq_adc import ops as pq
+
+    g = gathers
+    d = g["qs"].shape[1]
+    mi, mf = g["pi"].shape[1], g["pf"].shape[1]
+    line = {"phase": "widths"}
+    for kname, hist in widths.items():
+        rows, loss, loss_design, loss_clean = [], 0.0, 0.0, 0.0
+        for wkey, count in hist.items():
+            b, m = (int(x) for x in wkey.split("x"))
+            check(b <= g["qs"].shape[0] and m <= g["ids"].shape[1],
+                  f"{kname}: width {wkey} exceeds the kernel phase's batch")
+            qs = g["qs"][:b].contiguous()
+            progs = {k: v[:b].contiguous() for k, v in g["progs"].items()}
+            dvec = g["dvec"][:b].contiguous()
+            ids = g["ids"][:b, :m].long()      # the traversal's id type
+            if kname == "gather_distance":
+                args = (g["pv"], g["pn"], g["pi"], g["pf"], qs, ids, progs,
+                        dvec)
+                kd, ktd = gd.gather_distance(*args)
+                pd, ptd = gd.gather_distance_plain(*args)
+                fin = torch.isfinite(pd)
+                ok = (torch.equal(fin, torch.isfinite(kd))
+                      and bool(((kd[fin] - pd[fin]).abs()
+                                <= ATOL + RTOL * pd[fin].abs()).all()))
+                bounds = gd_bounds(rates, ids, d, mi, mf, progs)
+
+                def call(args=args):
+                    return gd.gather_distance(*args)
+                warm = None
+            else:
+                lb = g["lb"][:b].contiguous()
+                kw = dict(ints=g["pi"], floats=g["pf"], programs=progs,
+                          dvec=dvec)
+                kd, ktd = pq.pq_adc_gather(g["codes"], lb, ids, **kw)
+                pd, ptd = pq.pq_adc_gather_plain(g["codes"], lb, ids, **kw)
+                ok = torch.equal(kd, pd)
+                bounds = pq_gather_bounds(rates, ids, g["codes"], lb, mi, mf,
+                                          progs)
+
+                def call(lb=lb, ids=ids, kw=kw):
+                    return pq.pq_adc_gather(g["codes"], lb, ids, **kw)
+
+                def warm(lb=lb):
+                    g["clean"]()
+                    lb.sum()
+            check(ok and bool(torch.equal(ktd, ptd)),
+                  f"{kname} at {wkey} vs plain")
+            row = {"width": wkey, "launches": count,
+                   "ms": graph_ms(call, repeats=REPEATS, flush=g["flush"]),
+                   "ms_clean": graph_ms(call, repeats=REPEATS,
+                                        flush=g["clean"]),
+                   **{k: v for k, v in bounds.items() if k.startswith(
+                       "bound_ms")}}
+            if warm is not None:
+                row["ms_warm_luts"] = graph_ms(call, repeats=REPEATS,
+                                               flush=warm)
+            if len(rows) < top:        # the busiest widths: eager call too
+                row["call_ms"] = cuda_ms(call, repeats=REPEATS,
+                                         flush=g["flush"])
+            loss += count * (row["ms"] - row["bound_ms"])
+            loss_design += count * (row["ms"] - row["bound_ms_design"])
+            loss_clean += count * (row["ms_clean"] - row["bound_ms"])
+            rows.append(row)
+        kernels[kname]["loss_ms_over_widths"] = loss
+        kernels[kname]["loss_ms_over_widths_design"] = loss_design
+        kernels[kname]["loss_ms_over_widths_clean"] = loss_clean
+        kernels[kname]["top_widths"] = rows[:top]
+        line[kname] = {"widths": rows, "loss_ms": loss,
+                       "loss_ms_design": loss_design,
+                       "loss_ms_clean": loss_clean,
+                       "launches": sum(hist.values())}
+    emit(line)
+
+
 def refimpl_recall(found, truth_row) -> float:
     from repro_torch.core import refimpl
     return refimpl.recall_at_k(found, truth_row[truth_row >= 0], K)
@@ -1072,7 +1255,7 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
                     for k, v in logs.items()}})
 
-    kernels = phase_kernels(dev, rates)
+    kernels, gathers = phase_kernels(dev, rates)
     kernels["filtered_topk"]["ptxas"] = [
         ln.strip() for ln in logs.get("filtered_topk.cu", "").splitlines()
         if "registers" in ln or "spill" in ln]
@@ -1080,7 +1263,9 @@ def main() -> int:
         ln.strip() for ln in logs.get("pq_adc.cu", "").splitlines()
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     kernels["embedding_bag"] = phase_embedding_bag(dev, rates)
-    launches = phase_serve(dev)
+    launches, widths = phase_serve(dev)
+    phase_widths(rates, kernels, gathers, widths)
+    del gathers
     # each kernel's launches on the pass of the main path that runs it
     main_pass = {"filtered_topk": "f32", "gather_distance": "f32",
                  "pq_adc_topr": "use_pq", "pq_adc_gather": "use_pq+graph_pq"}

@@ -12,7 +12,9 @@ program:
 
 ``ExactScorer`` is one ``gather_distance`` call and ``PqAdcScorer`` one
 ``pq_adc_gather`` call: the hand-written kernels on CUDA tensors, their plain
-versions on CPU tensors.  ``SqScorer`` has no kernel in the JAX package
+versions on CPU tensors.  Both take the traversal's int64 ids as they are
+(contiguous (B, M) blocks), so a CUDA call is two output allocations and
+one launch.  ``SqScorer`` has no kernel in the JAX package
 either and stays plain torch.  Every scorer reduces each (query, row) pair
 on its own, so results do not depend on the batch width (the lane-compaction
 ladder relies on that).
@@ -37,9 +39,6 @@ from . import filters as F
 from ..kernels.gather_distance import ops as gd_ops
 from ..kernels.pq_adc import ops as pq_ops
 
-def _ids32(ids):
-    return ids.to(torch.int32).contiguous()
-
 
 @dataclass(frozen=True)
 class ExactScorer:
@@ -52,11 +51,11 @@ class ExactScorer:
         return {"q": queries, "programs": programs}
 
     def score_block(self, g: dict, state: dict, ids, D):
-        """ids (B, M) row ids >= 0, D (B,) f32 -> (dbar (B, M) f32,
-        td (B, M) bool); D = 0 gives plain distances."""
+        """ids (B, M) contiguous int32 / int64 row ids >= 0, D (B,) f32 ->
+        (dbar (B, M) f32, td (B, M) bool); D = 0 gives plain distances."""
         return gd_ops.gather_distance(
             g["vectors"], g["norms"], g["attrs_int"], g["attrs_float"],
-            state["q"], _ids32(ids), state["programs"], D)
+            state["q"], ids, state["programs"], D)
 
     def bytes_per_row(self, g: dict) -> int:
         return 4 * int(g["vectors"].shape[1])
@@ -85,7 +84,7 @@ class PqAdcScorer:
 
     def score_block(self, g: dict, state: dict, ids, D):
         return pq_ops.pq_adc_gather(
-            g["codes"], state["luts"], _ids32(ids), ints=g["attrs_int"],
+            g["codes"], state["luts"], ids, ints=g["attrs_int"],
             floats=g["attrs_float"], programs=state["programs"], dvec=D)
 
     def bytes_per_row(self, g: dict) -> int:

@@ -102,17 +102,33 @@
 //    (topk_merge.cuh) merges the splits' lists per query in the same
 //    (key, id) order.
 //
-// pq_adc_gather -- what bounds it: bytes, a few MB of scattered code rows,
-// LUT entries and ids; at the graph route's shapes launch latency
-// dominates.  One thread per (query, neighbour) reads the neighbour's code
-// row and sums its M entries of that query's LUT straight from global
-// memory (a 1024-query batch of bf16 tables is 16 MB: L2-resident).  The
-// TPU kernel's bq-fold redundant scoring of every staged row against every
-// query of its tile is dropped.  In filter mode the same thread evaluates
-// the query's filter program on the neighbour's attributes (the TD bit)
-// and writes dbar = sqrt(max(adc2, 0)) + D * (1 - td) (Eq. 2), the function
-// the JAX traversal computes around the TPU kernel; an id < 0 gives BIG
-// and td = 0.
+// pq_adc_gather -- what bounds it: bytes, and at the graph route's widths
+// latency.  A 1024 x 32 batch reads ~29,000 scattered 32-byte code rows and
+// attribute rows, and its lookups touch ~85 % of the 32-byte sectors of
+// each query's 16 KB bf16 table (~14 MB; ~5 us at 3.35 TB/s, the design's
+// bound); the tables are read again every wave, so in the traversal they
+// sit in L2.  Each pair waits on three dependent round trips: its id, then
+// its code row, then its table entries.
+//
+// Design: one thread per (query, neighbour), a query's M0 threads side by
+// side in a block of up to GTPB threads holding GTPB / M0 queries (at most
+// GQMAX, so the descent's M0 = 1 launches many small blocks):
+//  * the prologue stages the block's filter programs, D and lane-mask bits
+//    in shared memory (each read once, not once per pair) while every
+//    thread loads its id;
+//  * at M = 32, K = 256 with bf16 tables (favor-anns; the FIXED
+//    instantiation) a thread reads its code row as two 16-byte loads and
+//    issues all 32 table lookups before the first add: a warp's 32 lookups
+//    of one subspace fall in that subspace's 512-byte slice, a few sectors;
+//    the sum is adc_exact's chain in subspace order (the same bits).  Any
+//    other M, K or f32 tables go through adc_exact itself;
+//  * the row's attributes are fetched beside its codes, and the thread
+//    evaluates the filter (favor::eval_row on the program in shared memory)
+//    and writes dbar = sqrt(max(adc2, 0)) + D * (1 - td) (Eq. 2) and the TD
+//    byte, or +inf at an id < 0, a value >= BIG or a dead lane: the
+//    wrapper's epilogue, so a call is one launch.
+// Staging each query's table in shared memory with one bulk copy was
+// measured against this and did not win (PERF.md, the kernel table).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -132,6 +148,8 @@ constexpr int RMAX = 1024;       // longest top-R list of one pass
 constexpr int MW = 16;           // code words held in registers (M <= 64)
 constexpr int PC = 128;          // pending entries per query and round
 constexpr int CAP = 2048;        // candidate buffer entries per block
+constexpr int GTPB = 128;        // threads per gather block, one pair each
+constexpr int GQMAX = 8;         // queries per gather block, at most
 constexpr int QSUM_MAX = 32767;  // largest Q: a u16 lane with bit 15 free
 constexpr int KEYED = 1 << 8;    // candidate tag: exact key known
 constexpr int SCORED = 1 << 9;   // candidate tag: filter passed, key known
@@ -694,36 +712,161 @@ __global__ void __launch_bounds__(TPB, 1) pq_screen(
     atomicAdd(rescored + q0 + tid, rcnt[tid]);
 }
 
-__global__ void __launch_bounds__(256) pq_gather(
-    const int* __restrict__ ids, const void* __restrict__ luts, int lut_bf16,
+// Shared memory of one gather block, byte offsets: per query its filter
+// program, D and lane-mask bit; per thread its pair's attribute row.
+struct GatherLayout {
+  size_t imask, valid, flo, fhi, dv, ri, rf, ok, bytes;
+};
+
+__host__ __device__ inline GatherLayout make_gather_layout(int QPB, int W,
+                                                           int mi, int mf) {
+  GatherLayout L;
+  size_t o = 0;
+  L.imask = o;
+  o += (size_t)8 * QPB * W * mi;
+  L.valid = o;
+  o += (size_t)4 * QPB * W;
+  L.flo = o;
+  o += (size_t)4 * QPB * W * mf;
+  L.fhi = o;
+  o += (size_t)4 * QPB * W * mf;
+  L.dv = o;
+  o += (size_t)4 * QPB;
+  L.ri = o;
+  o += (size_t)4 * GTPB * mi;
+  L.rf = o;
+  o += (size_t)4 * GTPB * mf;
+  L.ok = o;
+  o += (size_t)QPB;
+  L.bytes = align16(o);
+  return L;
+}
+
+template <typename IdT>
+__device__ __forceinline__ int load_id(const IdT* ids, size_t at) {
+  const long long v = (long long)ids[at];
+  return v < 0 ? -1 : (int)v;
+}
+
+// The exact ADC key at M = 32, K = 256 from a bf16 table: the row's 32 codes
+// in two 16-byte loads, all 32 lookups issued before the first add, then
+// adc_exact's chain (the same sum, the same bits).
+__device__ __forceinline__ float adc_exact_m32k256(
+    const unsigned short* __restrict__ lq, const uint4& w0, const uint4& w1) {
+  const uint32_t cw[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  float x[32];
+#pragma unroll
+  for (int m = 0; m < 32; ++m)
+    x[m] = __uint_as_float(
+        (uint32_t)__ldg(lq + m * 256 + ((cw[m >> 2] >> (8 * (m & 3))) & 255u))
+        << 16);
+  float acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < 32; ++m) acc = __fadd_rn(acc, x[m]);
+  return acc;
+}
+
+// One thread per (query, neighbour) pair, QPB queries per block of up to
+// GTPB threads (lane j of a query's run of M0 threads takes neighbour j).  FIXED
+// = 1 is the M = 32, K = 256 bf16 instantiation; FIXED = 0 reads any M, K
+// and either table type through adc_exact.
+template <int FIXED, typename IdT>
+__global__ void __launch_bounds__(GTPB) pq_gather(
+    const IdT* __restrict__ ids, const void* __restrict__ luts, int lut_bf16,
     const uint8_t* __restrict__ codes, const int* __restrict__ ints,
     const float* __restrict__ floats, const float* __restrict__ valid,
     const long long* __restrict__ imask, const float* __restrict__ flo,
-    const float* __restrict__ fhi, const float* __restrict__ dvec, int B,
-    int M0, int M, int K, int mi, int mf, int W, int filter,
-    float* __restrict__ out_d, int* __restrict__ out_td) {
-  const long long pair = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pair >= (long long)B * M0) return;
-  const int b = (int)(pair / M0);
-  const int id = ids[pair];
-  if (id < 0) {
-    out_d[pair] = BIG;
-    if (filter) out_td[pair] = 0;
-    return;
+    const float* __restrict__ fhi, const float* __restrict__ dvec,
+    const uint8_t* __restrict__ lane_ok, int B, int M0, int M, int K, int mi,
+    int mf, int W, int filter, int QPB, GatherLayout L,
+    float* __restrict__ out_d, uint8_t* __restrict__ out_td) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* s_imask = reinterpret_cast<long long*>(smem + L.imask);
+  float* s_valid = reinterpret_cast<float*>(smem + L.valid);
+  float* s_flo = reinterpret_cast<float*>(smem + L.flo);
+  float* s_fhi = reinterpret_cast<float*>(smem + L.fhi);
+  float* s_dv = reinterpret_cast<float*>(smem + L.dv);
+  int* s_ri = reinterpret_cast<int*>(smem + L.ri) + threadIdx.x * mi;
+  float* s_rf = reinterpret_cast<float*>(smem + L.rf) + threadIdx.x * mf;
+  uint8_t* s_ok = smem + L.ok;
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int b0 = blockIdx.x * QPB;
+  const int nq = min(QPB, B - b0);
+  const int pairs = nq * M0;
+  const size_t pair0 = (size_t)b0 * M0;
+  int id = tid < pairs ? load_id(ids, pair0 + tid) : -1;
+  if (filter) {
+#pragma unroll 4
+    for (int i = tid; i < nq * W; i += nt)
+      s_valid[i] = valid[(size_t)b0 * W + i];
+#pragma unroll 4
+    for (int i = tid; i < nq * W * mi; i += nt)
+      s_imask[i] = imask[(size_t)b0 * W * mi + i];
+#pragma unroll 4
+    for (int i = tid; i < nq * W * mf; i += nt) {
+      s_flo[i] = flo[(size_t)b0 * W * mf + i];
+      s_fhi[i] = fhi[(size_t)b0 * W * mf + i];
+    }
+    if (tid < nq) s_dv[tid] = dvec[b0 + tid];
   }
-  const float acc = adc_exact(luts, lut_bf16, (size_t)b * M * K,
-                              codes + (size_t)id * M, M, K);
-  if (!filter) {
-    out_d[pair] = acc;
-    return;
+  if (tid < nq) s_ok[tid] = lane_ok == nullptr ? 1 : lane_ok[b0 + tid];
+  __syncthreads();
+
+  for (int p = tid; p < pairs; p += nt) {
+    if (p != tid) id = load_id(ids, pair0 + p);
+    const int qi = p / M0;
+    float out = INFINITY;
+    int td = 0;
+    if (id >= 0 && s_ok[qi]) {
+      const size_t qoff = (size_t)(b0 + qi) * M * K;
+      uint4 w0 = make_uint4(0u, 0u, 0u, 0u), w1 = w0;
+      if constexpr (FIXED) {
+        const uint4* c4 =
+            reinterpret_cast<const uint4*>(codes + (size_t)id * 32);
+        w0 = __ldg(c4);
+        w1 = __ldg(c4 + 1);
+      }
+      if (filter) {  // the attribute row, fetched beside the codes
+        for (int c = 0; c < mi; ++c)
+          s_ri[c] = __ldg(ints + (size_t)id * mi + c);
+        for (int c = 0; c < mf; ++c)
+          s_rf[c] = __ldg(floats + (size_t)id * mf + c);
+      }
+      float acc;
+      if constexpr (FIXED)
+        acc = adc_exact_m32k256(
+            reinterpret_cast<const unsigned short*>(luts) + qoff, w0, w1);
+      else
+        acc = adc_exact(luts, lut_bf16, qoff, codes + (size_t)id * M, M, K);
+      if (!filter) {
+        out = acc;
+      } else {
+        td = favor::eval_row(s_valid + qi * W, s_imask + (size_t)qi * W * mi,
+                             s_flo + qi * W * mf, s_fhi + qi * W * mf, W, mi,
+                             mf, s_ri, s_rf)
+                 ? 1 : 0;
+        const float dist = sqrtf(fmaxf(acc, 0.f));
+        out = td ? dist : __fadd_rn(dist, s_dv[qi]);
+      }
+      if (out >= BIG) out = INFINITY;
+    }
+    out_d[pair0 + p] = out;
+    if (filter) out_td[pair0 + p] = (uint8_t)td;
   }
-  const float dist = sqrtf(fmaxf(acc, 0.f));
-  const bool td = favor::eval_row(
-      valid + (size_t)b * W, imask + (size_t)b * W * mi,
-      flo + (size_t)b * W * mf, fhi + (size_t)b * W * mf, W, mi, mf,
-      ints + (size_t)id * mi, floats + (size_t)id * mf);
-  out_d[pair] = td ? dist : __fadd_rn(dist, dvec[b]);
-  out_td[pair] = td ? 1 : 0;
+}
+
+// Gather queries per block: GTPB / M0, at least one and at most GQMAX (a
+// block stages its queries' programs, so a narrow launch -- the descent's
+// M0 = 1 -- takes more, smaller blocks), then fewer until the programs fit
+// the default 48 KB of shared memory.
+int gather_queries_per_block(int B, int M0, int W, int mi, int mf) {
+  int qpb = M0 >= GTPB ? 1 : GTPB / M0;
+  qpb = qpb < GQMAX ? qpb : GQMAX;
+  qpb = qpb < B ? qpb : B;
+  while (qpb > 1 && make_gather_layout(qpb, W, mi, mf).bytes > 48 * 1024)
+    --qpb;
+  return qpb < 1 ? 1 : qpb;
 }
 
 // The pre-check against the filter (a test probe): per (query, row), bit 0
@@ -841,26 +984,60 @@ int pq_adc_topr_launch(const void* luts, int lut_bf16, int table,
   return (int)cudaGetLastError();
 }
 
-// ids (B, M0) int32; luts (B, M*K) f32 or bf16; codes (N, M) uint8.
-// filter = 0: out_d = adc2 (BIG at id < 0); filter = 1: out_d = dbar and
-// out_td = TD bit (int32).  Returns cudaGetLastError() after the launch.
-int pq_adc_gather_launch(const void* ids, const void* luts, int lut_bf16,
-                         const void* codes, const void* ints,
+// ids (B, M0) int32 (ids64 = 0) or int64 (ids64 = 1); luts (B, M*K) f32
+// or bf16; codes (N, M) uint8; lane_ok (B,) uint8 or null.  filter = 0:
+// out_d = adc2; filter = 1: out_d = dbar and out_td = TD bit (uint8); +inf
+// at id < 0, at values >= BIG and on dead lanes.  Returns the first CUDA
+// error of the launch.
+int pq_adc_gather_launch(const void* ids, int ids64, const void* luts,
+                         int lut_bf16, const void* codes, const void* ints,
                          const void* floats, const void* valid,
                          const void* imask, const void* flo, const void* fhi,
-                         const void* dvec, int B, int M0, int M, int K, int mi,
-                         int mf, int W, int filter, void* out_d, void* out_td,
-                         void* stream) {
-  const long long pairs = (long long)B * M0;
-  const unsigned blocks = (unsigned)((pairs + 255) / 256);
-  pq_gather<<<blocks, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ids), luts, lut_bf16,
-      static_cast<const uint8_t*>(codes), static_cast<const int*>(ints),
-      static_cast<const float*>(floats), static_cast<const float*>(valid),
-      static_cast<const long long*>(imask), static_cast<const float*>(flo),
-      static_cast<const float*>(fhi), static_cast<const float*>(dvec), B, M0,
-      M, K, mi, mf, W, filter, static_cast<float*>(out_d),
-      static_cast<int*>(out_td));
+                         const void* dvec, const void* lane_ok, int B, int M0,
+                         int M, int K, int mi, int mf, int W, int filter,
+                         void* out_d, void* out_td, void* stream) {
+  if (!filter) mi = mf = W = 0;
+  const int qpb = gather_queries_per_block(B, M0, W, mi, mf);
+  const GatherLayout L = make_gather_layout(qpb, W, mi, mf);
+  const bool fixed = lut_bf16 && M == 32 && K == 256;
+  void* kern = fixed ? (ids64 ? (void*)pq_gather<1, long long>
+                              : (void*)pq_gather<1, int>)
+                     : (ids64 ? (void*)pq_gather<0, long long>
+                              : (void*)pq_gather<0, int>);
+  if (L.bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int* i32 = static_cast<const int*>(ids);
+  const long long* i64 = static_cast<const long long*>(ids);
+  const uint8_t* cd = static_cast<const uint8_t*>(codes);
+  const int* ip = static_cast<const int*>(ints);
+  const float* fp = static_cast<const float*>(floats);
+  const float* va = static_cast<const float*>(valid);
+  const long long* im = static_cast<const long long*>(imask);
+  const float* lo = static_cast<const float*>(flo);
+  const float* hi = static_cast<const float*>(fhi);
+  const float* dv = static_cast<const float*>(dvec);
+  const uint8_t* ok = static_cast<const uint8_t*>(lane_ok);
+  float* od = static_cast<float*>(out_d);
+  uint8_t* ot = static_cast<uint8_t*>(out_td);
+  const unsigned blocks = (unsigned)((B + qpb - 1) / qpb);
+  const int pairs = qpb * M0;
+  const int threads = pairs >= GTPB ? GTPB : 32 * ((pairs + 31) / 32);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+#define PQ_GATHER_ARGS                                                      \
+  luts, lut_bf16, cd, ip, fp, va, im, lo, hi, dv, ok, B, M0, M, K, mi, mf, \
+      W, filter, qpb, L, od, ot
+  if (fixed && ids64)
+    pq_gather<1, long long><<<blocks, threads, L.bytes, st>>>(i64, PQ_GATHER_ARGS);
+  else if (fixed)
+    pq_gather<1, int><<<blocks, threads, L.bytes, st>>>(i32, PQ_GATHER_ARGS);
+  else if (ids64)
+    pq_gather<0, long long><<<blocks, threads, L.bytes, st>>>(i64, PQ_GATHER_ARGS);
+  else
+    pq_gather<0, int><<<blocks, threads, L.bytes, st>>>(i32, PQ_GATHER_ARGS);
+#undef PQ_GATHER_ARGS
   return (int)cudaGetLastError();
 }
 

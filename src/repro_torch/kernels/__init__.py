@@ -26,7 +26,8 @@ an edited source is rebuilt); a wrapper's first launch builds what is
 missing.
 
 ``launch_counts`` counts the kernel launches each wrapper made, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; ``launch_widths`` counts
+the graph route's gather launches by their (B, M) width.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 launch_counts = {name: 0 for name in SOURCES}
+launch_widths: dict[str, dict[tuple[int, int], int]] = {
+    name: {} for name in SOURCES}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -57,10 +60,16 @@ _lock = threading.Lock()
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+        launch_widths[name].clear()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, width: tuple[int, int] | None = None) -> None:
+    """One launch of kernel ``name``; ``width`` (B, M), where given, is
+    counted in ``launch_widths`` too."""
     launch_counts[name] += 1
+    if width is not None:
+        widths = launch_widths[name]
+        widths[width] = widths.get(width, 0) + 1
 
 
 def nvcc_path() -> str:

@@ -56,6 +56,29 @@ def check_programs(name: str, programs: dict, b: int, mi: int, mf: int,
     return w
 
 
+ID_DTYPES = (torch.int32, torch.int64)
+
+
+def id_dtype(t) -> torch.dtype:
+    """The dtype a gather wrapper accepts for ``t``, a tensor of row ids: its
+    own when int32 or int64 (the gather kernels read both), else int32, so
+    that ``check`` names the mismatch."""
+    return t.dtype if getattr(t, "dtype", None) in ID_DTYPES else torch.int32
+
+
+def lane_mask(name: str, valid, b: int, device):
+    """The optional ``valid`` (B,) lane mask as the gather kernels read it:
+    None, or a bool tensor on ``device`` (converted only when it is not one
+    already), checked as every kernel input is."""
+    if valid is None:
+        return None
+    if not (isinstance(valid, torch.Tensor) and valid.dtype == torch.bool
+            and valid.device == device):
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=device)
+    check(name, "valid", valid, torch.bool, (b,), device)
+    return valid
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

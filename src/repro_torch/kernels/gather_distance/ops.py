@@ -17,7 +17,8 @@ from .. import check_status, count_launch, library
 from ...core import filters as F
 
 NAME = "gather_distance"
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
 
 
 def _fn():
@@ -32,9 +33,11 @@ def gather_distance(vectors, norms, ints, floats, queries, nbr_ids, programs,
                     dvec, *, valid=None):
     """Graph-expansion distance evaluation.
 
-    nbr_ids (B, M) int32 (-1 pad); queries (B, d) f32; DB arrays as in
-    ``filtered_topk``; dvec (B,) f32.  CPU tensors run
-    ``gather_distance_plain``; CUDA tensors launch the kernel.
+    nbr_ids (B, M) int32 or int64 (-1 pad); queries (B, d) f32; DB arrays as
+    in ``filtered_topk``; dvec (B,) f32.  CPU tensors run
+    ``gather_distance_plain``; CUDA tensors launch the kernel, which also
+    applies the +inf / ``valid`` epilogue, so a CUDA call dispatches no torch
+    op but its two output allocations.
     Returns (dbar (B, M) f32, td (B, M) bool).
     """
     if not C.on_cuda(queries):
@@ -46,7 +49,7 @@ def gather_distance(vectors, norms, ints, floats, queries, nbr_ids, programs,
     m = nbr_ids.shape[1]
     n = vectors.shape[0]
     mi, mf = ints.shape[1], floats.shape[1]
-    C.check(NAME, "nbr_ids", nbr_ids, torch.int32, (b, m), dev)
+    C.check(NAME, "nbr_ids", nbr_ids, C.id_dtype(nbr_ids), (b, m), dev)
     C.check(NAME, "queries", queries, torch.float32, (b, d), dev)
     C.check(NAME, "vectors", vectors, torch.float32, (n, d), dev)
     C.check(NAME, "norms", norms, torch.float32, (n,), dev)
@@ -54,18 +57,21 @@ def gather_distance(vectors, norms, ints, floats, queries, nbr_ids, programs,
     C.check(NAME, "floats", floats, torch.float32, (n, mf), dev)
     C.check(NAME, "dvec", dvec, torch.float32, (b,), dev)
     w = C.check_programs(NAME, programs, b, mi, mf, dev)
+    lane_ok = C.lane_mask(NAME, valid, b, dev)
     out_d = torch.empty((b, m), dtype=torch.float32, device=dev)
-    out_td = torch.empty((b, m), dtype=torch.int32, device=dev)
+    out_td = torch.empty((b, m), dtype=torch.bool, device=dev)
     if b * m:
-        status = _fn()(C.ptr(nbr_ids), C.ptr(queries), C.ptr(vectors),
-                       C.ptr(norms), C.ptr(ints), C.ptr(floats),
-                       C.ptr(programs["valid"]), C.ptr(programs["imask"]),
-                       C.ptr(programs["flo"]), C.ptr(programs["fhi"]),
-                       C.ptr(dvec), b, m, d, mi, mf, w, C.ptr(out_d),
-                       C.ptr(out_td), C.stream_ptr(dev))
+        status = _fn()(C.ptr(nbr_ids), int(nbr_ids.dtype == torch.int64),
+                       C.ptr(queries), C.ptr(vectors), C.ptr(norms),
+                       C.ptr(ints), C.ptr(floats), C.ptr(programs["valid"]),
+                       C.ptr(programs["imask"]), C.ptr(programs["flo"]),
+                       C.ptr(programs["fhi"]), C.ptr(dvec),
+                       None if lane_ok is None else C.ptr(lane_ok), b, m, d,
+                       mi, mf, w, C.ptr(out_d), C.ptr(out_td),
+                       C.stream_ptr(dev))
         check_status(NAME, status)
-        count_launch(NAME)
-    return _finish(out_d, out_td.to(torch.bool), valid)
+        count_launch(NAME, (b, m))
+    return out_d, out_td
 
 
 def _finish(dbar, td, valid):

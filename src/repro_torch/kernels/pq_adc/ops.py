@@ -47,7 +47,7 @@ def _lib():
             + [ctypes.c_void_p] * 7)
         lib.pq_adc_topr_launch.restype = ctypes.c_int
         lib.pq_adc_gather_launch.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 8
+            [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
             + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
         lib.pq_adc_gather_launch.restype = ctypes.c_int
         lib.pq_adc_topr_smem_bytes.argtypes = [ctypes.c_int] * 8
@@ -232,14 +232,15 @@ def pq_adc_gather(codes, luts, nbr_ids, *, ints=None, floats=None,
                   programs=None, dvec=None, valid=None):
     """Graph-expansion ADC scoring of each query's own neighbour rows.
 
-    codes (N, M) uint8; luts (B, M, K) f32 or bf16; nbr_ids (B, M0) int32
-    (-1 pad).  Without ``programs``: returns adc2 (B, M0) f32, +inf at -1
-    ids.  With ``ints``, ``floats``, ``programs`` and ``dvec`` (B,) f32 (the
-    filter mode the traversal uses): also evaluates each row's TD bit under
-    the query's program and returns (dbar (B, M0) f32, td (B, M0) bool) with
-    dbar = sqrt(max(adc2, 0)) + D * (1 - td) (Eq. 2), +inf / False at -1
-    ids.  CPU tensors run ``pq_adc_gather_plain``; CUDA tensors launch the
-    kernel.
+    codes (N, M) uint8; luts (B, M, K) f32 or bf16; nbr_ids (B, M0) int32 or
+    int64 (-1 pad).  Without ``programs``: returns adc2 (B, M0) f32, +inf at
+    -1 ids.  With ``ints``, ``floats``, ``programs`` and ``dvec`` (B,) f32
+    (the filter mode the traversal uses): also evaluates each row's TD bit
+    under the query's program and returns (dbar (B, M0) f32, td (B, M0)
+    bool) with dbar = sqrt(max(adc2, 0)) + D * (1 - td) (Eq. 2), +inf /
+    False at -1 ids.  CPU tensors run ``pq_adc_gather_plain``; CUDA tensors
+    launch the kernel, which also applies the +inf / ``valid`` epilogue, so
+    a CUDA call dispatches no torch op but its output allocations.
     """
     if not C.on_cuda(luts):
         return pq_adc_gather_plain(codes, luts, nbr_ids, ints=ints,
@@ -252,7 +253,7 @@ def pq_adc_gather(codes, luts, nbr_ids, *, ints=None, floats=None,
     n = codes.shape[0]
     _check_luts(GATHER, luts, b, m, dev)
     C.check(GATHER, "codes", codes, torch.uint8, (n, m), dev)
-    C.check(GATHER, "nbr_ids", nbr_ids, torch.int32, (b, m0), dev)
+    C.check(GATHER, "nbr_ids", nbr_ids, C.id_dtype(nbr_ids), (b, m0), dev)
     filt = programs is not None
     if filt:
         mi, mf = ints.shape[1], floats.shape[1]
@@ -265,18 +266,20 @@ def pq_adc_gather(codes, luts, nbr_ids, *, ints=None, floats=None,
     else:
         mi = mf = w = 0
         args = (None,) * 7
+    lane_ok = C.lane_mask(GATHER, valid, b, dev)
     out_d = torch.empty((b, m0), dtype=torch.float32, device=dev)
-    out_td = torch.empty((b, m0) if filt else (0,), dtype=torch.int32,
-                         device=dev)
+    out_td = (torch.empty((b, m0), dtype=torch.bool, device=dev) if filt
+              else None)
     if b * m0:
         status = _lib().pq_adc_gather_launch(
-            C.ptr(nbr_ids), C.ptr(luts), int(luts.dtype == torch.bfloat16),
-            C.ptr(codes), *(None if a is None else C.ptr(a) for a in args),
+            C.ptr(nbr_ids), int(nbr_ids.dtype == torch.int64), C.ptr(luts),
+            int(luts.dtype == torch.bfloat16), C.ptr(codes),
+            *(None if a is None else C.ptr(a) for a in (*args, lane_ok)),
             b, m0, m, ksub, mi, mf, w, int(filt), C.ptr(out_d),
-            C.ptr(out_td), C.stream_ptr(dev))
+            None if out_td is None else C.ptr(out_td), C.stream_ptr(dev))
         check_status(GATHER, status)
-        count_launch(GATHER)
-    return _finish(out_d, out_td.to(torch.bool) if filt else None, valid)
+        count_launch(GATHER, (b, m0))
+    return (out_d, out_td) if filt else out_d
 
 
 def _finish(d, td, valid):

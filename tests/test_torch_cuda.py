@@ -224,6 +224,185 @@ def test_wrappers_reject_bad_inputs(dev):
 
 
 # ---------------------------------------------------------------------------
+# the graph route's gathers at every width the traversal launches
+# ---------------------------------------------------------------------------
+def _count_ops(fn):
+    """(result, number of torch operators ``fn()`` dispatched)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        out = fn()
+    return out, c.n
+
+
+# (schema, program width W): the paper schema at W = 8 and W = 1, no int
+# columns (m_i = 0) and no float column (m_f = 0)
+GATHER_SCHEMAS = {"paper_w8": (None, 8), "paper_w1": (None, 1),
+                  "no_ints_w8": (dict(n_bool=0, n_int=0), 8),
+                  "no_floats_w1": (dict(n_float=0), 1)}
+
+
+def _gather_inputs(dev, n, b, m, seed, schema="paper_w8", d=128):
+    """A DB whose last rows are padding (NaN floats, -1 ints), ids with
+    about 10 % -1, D = +inf on every fifth query, a lane mask with every
+    fourth query dead, and one filter program per query of width W."""
+    schema_kw, width = GATHER_SCHEMAS[schema]
+    rng = np.random.default_rng(seed)
+    sch = PF.paper_schema(**(schema_kw or {}))
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    norms = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
+    attrs = PF.random_attributes(sch, n, seed=seed + 1)
+    ints, floats = attrs.ints.copy(), attrs.floats.copy()
+    ints[-n // 10:] = -1
+    floats[-n // 10:] = np.nan
+    pool = [PF.TrueFilter()]
+    if sch.float_columns:
+        pool.append(PF.Range("f0", 20.0, 70.0))
+    if any(c.kind == "bool" for c in sch.int_columns):
+        pool.append(PF.Equality("b0", True))
+    if any(c.kind == "int" for c in sch.int_columns):
+        pool.append(PF.Inclusion("i0", [1, 5, 9]))
+    if width > 1 and sch.float_columns:
+        pool.append(PF.Not(PF.Range("f0", 30.0, 80.0)))   # two disjuncts
+    progs = compile_programs([pool[i % len(pool)] for i in range(b)], sch,
+                             b, width, device=dev)
+    ids = rng.integers(0, n, size=(b, m))
+    ids[rng.random((b, m)) < 0.1] = -1
+    dvec = rng.uniform(0.1, 2.0, size=b).astype(np.float32)
+    dvec[::5] = np.inf
+    valid = np.ones(b, bool)
+    valid[3::4] = False
+    t = lambda a, **kw: torch.as_tensor(a, device=dev, **kw)  # noqa: E731
+    return dict(db=(t(vecs), t(norms), t(ints), t(floats)), progs=progs,
+                qs=t(rng.normal(size=(b, d)).astype(np.float32)),
+                ids=t(ids, dtype=torch.int64), dvec=t(dvec), valid=t(valid),
+                rng=rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schema", sorted(GATHER_SCHEMAS))
+@pytest.mark.parametrize("b,m", [(b, m) for b in (1, 3, 1024)
+                                 for m in (1, 16, 32)])
+def test_gather_distance_every_width_matches_plain(dev, b, m, schema):
+    c = _gather_inputs(dev, 4000, b, m, seed=b * 100 + m, schema=schema)
+    db, qs, progs, dvec = c["db"], c["qs"], c["progs"], c["dvec"]
+    pd, ptd = gd.gather_distance_plain(*db, qs, c["ids"], progs, dvec,
+                                       valid=c["valid"])
+    for ids in (c["ids"], c["ids"].to(torch.int32)):
+        before = K.launch_counts["gather_distance"]
+        (kd, ktd), ops = _count_ops(lambda: gd.gather_distance(
+            *db, qs, ids, progs, dvec, valid=c["valid"]))
+        torch.cuda.synchronize()
+        assert K.launch_counts["gather_distance"] == before + 1
+        assert ops == 2                        # the two output allocations
+        assert kd.dtype == torch.float32 and ktd.dtype == torch.bool
+        assert torch.equal(torch.isinf(kd), torch.isinf(pd))
+        torch.testing.assert_close(kd, pd, rtol=TOL, atol=TOL)
+        assert torch.equal(ktd, ptd)
+        assert torch.isinf(kd[~c["valid"]]).all()
+        assert not ktd[~c["valid"]].any()
+    # the traversal's call: no mask; a query's bits do not depend on its
+    # block mates (one query alone, the first query of a wider batch)
+    full, _ = gd.gather_distance(*db, qs, c["ids"], progs, dvec)
+    one, _ = gd.gather_distance(
+        *db, qs[-1:].clone(), c["ids"][-1:].clone(),
+        {k: v[-1:].clone() for k, v in progs.items()}, dvec[-1:].clone())
+    assert torch.equal(one, full[-1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,b,m", [(512, 9, 32),    # staged, opt-in memory
+                                   (2048, 3, 40),   # rows too wide to stage
+                                   (20, 5, 33),     # staged, two tiles
+                                   (19, 4, 64)])    # scalar rows, two tiles
+def test_gather_distance_row_widths_and_tiles(dev, d, b, m):
+    c = _gather_inputs(dev, 800, b, m, seed=d + m, d=d)
+    args = (*c["db"], c["qs"], c["ids"], c["progs"], c["dvec"])
+    kd, ktd = gd.gather_distance(*args, valid=c["valid"])
+    pd, ptd = gd.gather_distance_plain(*args, valid=c["valid"])
+    assert torch.equal(torch.isinf(kd), torch.isinf(pd))
+    torch.testing.assert_close(kd, pd, rtol=TOL, atol=TOL)
+    assert torch.equal(ktd, ptd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schema", ["paper_w8", "no_ints_w8",
+                                    "no_floats_w1"])
+@pytest.mark.parametrize("lut_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,m0", [(b, m) for b in (1, 3, 1024)
+                                  for m in (1, 16, 32)])
+def test_pq_adc_gather_every_width_matches_plain(dev, b, m0, lut_dtype,
+                                                 schema):
+    """Bit for bit in both modes, int32 and int64 ids, at M = 32 x K = 256
+    (bf16: the fixed instantiation; f32: the generic one)."""
+    n = 4000
+    c = _gather_inputs(dev, n, b, m0, seed=b * 10 + m0, schema=schema, d=8)
+    _, _, ints, floats = c["db"]
+    rng = c["rng"]
+    codes = torch.as_tensor(rng.integers(0, 256, size=(n, 32)),
+                            dtype=torch.uint8, device=dev)
+    luts = torch.as_tensor(rng.uniform(0, 4.0, size=(b, 32, 256)),
+                           dtype=torch.float32, device=dev).to(lut_dtype)
+    kw = dict(ints=ints, floats=floats, programs=c["progs"], dvec=c["dvec"])
+    pa = pq.pq_adc_gather_plain(codes, luts, c["ids"], valid=c["valid"])
+    pd, ptd = pq.pq_adc_gather_plain(codes, luts, c["ids"], valid=c["valid"],
+                                     **kw)
+    for ids in (c["ids"], c["ids"].to(torch.int32)):
+        before = K.launch_counts["pq_adc_gather"]
+        ka, ops_a = _count_ops(lambda: pq.pq_adc_gather(
+            codes, luts, ids, valid=c["valid"]))
+        (kd, ktd), ops_f = _count_ops(lambda: pq.pq_adc_gather(
+            codes, luts, ids, valid=c["valid"], **kw))
+        torch.cuda.synchronize()
+        assert K.launch_counts["pq_adc_gather"] == before + 2
+        assert (ops_a, ops_f) == (1, 2)        # the output allocations
+        assert torch.equal(ka, pa)
+        assert torch.equal(kd, pd) and torch.equal(ktd, ptd)
+        assert ktd.dtype == torch.bool
+        assert torch.isinf(kd[~c["valid"]]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nbits", [(8, 6), (30, 8), (64, 4)])
+def test_pq_adc_gather_generic_tables(dev, m, nbits):
+    """M and K other than 32 x 256 (the generic instantiation), f32 and
+    bf16 tables, int64 ids, both modes, bit for bit."""
+    n, b, m0 = 3000, 40, 32
+    c = _gather_inputs(dev, n, b, m0, seed=m, d=8)
+    _, _, ints, floats = c["db"]
+    codes = torch.as_tensor(c["rng"].integers(0, 1 << nbits, size=(n, m)),
+                            dtype=torch.uint8, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        luts = torch.as_tensor(c["rng"].uniform(0, 4.0, size=(b, m, 1 << nbits)),
+                               dtype=torch.float32, device=dev).to(dt)
+        kw = dict(ints=ints, floats=floats, programs=c["progs"],
+                  dvec=c["dvec"], valid=c["valid"])
+        assert torch.equal(pq.pq_adc_gather(codes, luts, c["ids"]),
+                           pq.pq_adc_gather_plain(codes, luts, c["ids"]))
+        kd, ktd = pq.pq_adc_gather(codes, luts, c["ids"], **kw)
+        pd, ptd = pq.pq_adc_gather_plain(codes, luts, c["ids"], **kw)
+        assert torch.equal(kd, pd) and torch.equal(ktd, ptd)
+
+
+@pytest.mark.cuda
+def test_gather_launch_widths_are_counted(dev):
+    c = _gather_inputs(dev, 500, 6, 16, seed=3)
+    K.reset_launch_counts()
+    for m in (16, 16, 1):
+        ids = c["ids"][:, :m].contiguous()
+        gd.gather_distance(*c["db"], c["qs"], ids, c["progs"], c["dvec"])
+    assert K.launch_widths["gather_distance"] == {(6, 16): 2, (6, 1): 1}
+    assert K.launch_counts["gather_distance"] == 3
+
+
+# ---------------------------------------------------------------------------
 # pq_adc_topr / pq_adc_gather
 # ---------------------------------------------------------------------------
 def _pq_case(dev, n, b, m, nbits, seed, n_pad=0, schema_kw=None,
