@@ -50,7 +50,25 @@ no result):
            serve phase launched them at (each pass counts its launches by
            width), on the kernel phase's rows: held to their plain versions
            and timed beside their bounds, and launches x (ms - bound)
-           summed over each histogram.
+           summed over each histogram;
+  engine   the serving engine (``repro_torch.serving.ServeEngine``) over
+           fresh copies of the serve index, saved before the live phase
+           and loaded from disk, with favor-anns' options
+           (``FavorServeConfig().search_options()``) and batch: 4 x 1024
+           requests held bit for bit to ``FavorIndex.query`` under
+           ``use_pq`` and ``use_pq`` + ``graph_quant="pq"`` (latency
+           percentiles, QPS, host time per step beyond the query's, launch
+           counts); obs fully on against off, bit for bit; one step under
+           ``torch.profiler`` (the device's busy share, top device ops,
+           ``favor/...`` ranges, longest idle gaps; the trace is kept,
+           gzipped, in the directory ``FAVOR_TRACE_DIR`` names, when it is
+           set); two pipelined steps finished in
+           reverse order, one on another thread, against serial steps; and
+           the live phase's mutation script through a background-merging
+           engine until its one commit (no deleted or replaced id served,
+           the result equal to a foreground merge's; merge and commit-stall
+           seconds, step times during the merge and without one, the merge
+           worker's launches).
 
 Then a ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and as the last line
@@ -59,9 +77,12 @@ reports them, and as the last line
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -105,6 +126,12 @@ BAG_V, BAG_D = 1_000_000, 64   # dlrm-rm2's vocabulary and width
 BAG_B, BAG_L = 65_536, 32      # bags per call, ids per bag (-1 tail)
 BAG_ROUNDS = 5                 # timing rounds of kernel and library call
 LIVE_UPSERT, LIVE_REPLACE, LIVE_DELETE = 2048, 256, 1024
+ENGINE_STEPS = 4       # engine phase: requests = ENGINE_STEPS x BATCH
+ENGINE_TIMED = 3       # interleaved (query, engine step) timing pairs
+PIPE_ROUNDS = 6        # serial / pipelined step pairs
+MERGE_BASELINE_STEPS = 6   # steps with the delta unmerged, no merge running
+MERGE_FRAC = 0.1       # merge_delta_frac: the live script's upserts are 12.5 %
+MERGE_TIMEOUT_S = 300.0    # the background merge must commit within this
 BUCKETS = dict(min_bucket=8, max_bucket=1024)
 
 
@@ -837,7 +864,10 @@ def cpu_check(fi, opts, qs, flts, res, label: str) -> dict:
             "brute_max_abs_diff": m["max_abs_diff"]}
 
 
-def phase_serve(dev):
+def phase_serve(dev, saved: Path):
+    """The serve phase (module docstring); saves the index with
+    ``FavorIndex.save`` under the path prefix ``saved`` before the live
+    phase mutates it."""
     import numpy as np
     import torch
 
@@ -963,6 +993,8 @@ def phase_serve(dev):
               "pq_adc_gather":
               lines["use_pq+graph_pq"]["launch_widths"].get("pq_adc_gather",
                                                             {})}
+    # the engine phase serves fresh copies of this index, loaded from disk
+    fi.save(str(saved))
     phase_live(dev, fi, qs, flts, float(rec32[~br32].mean()))
     return launches, widths
 
@@ -1023,6 +1055,48 @@ def bucketed_pass(fi, passes, results, lines, qs, flts, names, truth):
     emit(line)
 
 
+def live_script(n0: int, d: int, schema) -> dict:
+    """The live phase's mutation script over an index of ``n0`` base rows:
+    LIVE_UPSERT new rows (the last LIVE_REPLACE of them replacing base
+    ids), then LIVE_DELETE deletes (a quarter of them upserted rows).
+    ``dead`` lists every id that must never come back."""
+    import numpy as np
+
+    from repro_torch.core import filters as F
+    from repro_torch.data import synthetic
+
+    rng = np.random.default_rng(SEED + 9)
+    new_v = synthetic.make_queries(LIVE_UPSERT, d, dataset_seed=SEED, seed=300)
+    new_a = F.random_attributes(schema, LIVE_UPSERT, seed=SEED + 11)
+    perm = rng.permutation(n0)
+    replaced = perm[:LIVE_REPLACE]
+    ids = n0 + np.arange(LIVE_UPSERT)        # positional: base_n + slot
+    del_delta = rng.choice(ids, LIVE_DELETE // 4, replace=False)
+    del_base = perm[LIVE_REPLACE:LIVE_REPLACE + LIVE_DELETE - len(del_delta)]
+    return {"vectors": new_v, "attrs": new_a, "replaced": replaced,
+            "ids": ids, "deletes": np.concatenate([del_base, del_delta]),
+            "dead": np.concatenate([replaced, del_base, del_delta])}
+
+
+def apply_live_script(target, script):
+    """Run ``script`` through ``target``'s ``upsert`` / ``delete`` (a
+    FavorIndex or a ServeEngine); returns the upserted ids."""
+    import numpy as np
+
+    new_v, new_a = script["vectors"], script["attrs"]
+    plain_n = LIVE_UPSERT - LIVE_REPLACE
+    ids = np.concatenate([
+        target.upsert(new_v[:plain_n], new_a.ints[:plain_n],
+                      new_a.floats[:plain_n]),
+        target.upsert(new_v[plain_n:], new_a.ints[plain_n:],
+                      new_a.floats[plain_n:], replace=script["replaced"])])
+    check(bool((ids == script["ids"]).all()),
+          "upsert ids are positional (base_n + slot)")
+    found = target.delete(script["deletes"])
+    check(found == LIVE_DELETE, f"delete found {found} of {LIVE_DELETE}")
+    return ids
+
+
 def phase_live(dev, fi, qs, flts, f32_graph_recall: float):
     """Mutations on the serve index, then a query batch before and after
     ``merge()``: no deleted or replaced id returned, brute recall@10 1.0
@@ -1035,36 +1109,21 @@ def phase_live(dev, fi, qs, flts, f32_graph_recall: float):
     from repro_torch import kernels as Kn
     from repro_torch.core import SearchOptions
     from repro_torch.core import filters as F
-    from repro_torch.data import synthetic
     from repro_torch.kernels.filtered_topk import ops as ft
 
-    rng = np.random.default_rng(SEED + 9)
     n0, d, schema = fi.index.n, fi.index.dim, fi.schema
-    new_v = synthetic.make_queries(LIVE_UPSERT, d, dataset_seed=SEED, seed=300)
-    new_a = F.random_attributes(schema, LIVE_UPSERT, seed=SEED + 11)
-    perm = rng.permutation(n0)
-    replaced = perm[:LIVE_REPLACE]
-    plain_n = LIVE_UPSERT - LIVE_REPLACE
+    script = live_script(n0, d, schema)
+    new_v, new_a = script["vectors"], script["attrs"]
     steps = {}
 
     Kn.reset_launch_counts()
     t0 = time.perf_counter()
-    ids = np.concatenate([
-        fi.upsert(new_v[:plain_n], new_a.ints[:plain_n],
-                  new_a.floats[:plain_n]),
-        fi.upsert(new_v[plain_n:], new_a.ints[plain_n:],
-                  new_a.floats[plain_n:], replace=replaced)])
-    check(bool((ids == n0 + np.arange(LIVE_UPSERT)).all()),
-          "upsert ids are positional (base_n + slot)")
-    del_delta = rng.choice(ids, LIVE_DELETE // 4, replace=False)
-    del_base = perm[LIVE_REPLACE:LIVE_REPLACE + LIVE_DELETE - len(del_delta)]
-    found = fi.delete(np.concatenate([del_base, del_delta]))
+    ids = apply_live_script(fi, script)
     torch.cuda.synchronize()
-    check(found == LIVE_DELETE, f"delete found {found} of {LIVE_DELETE}")
     steps["mutate"] = {"s": time.perf_counter() - t0,
                        "launches": dict(Kn.launch_counts),
                        "live_stats": fi.live_stats()}
-    dead = np.concatenate([replaced, del_base, del_delta])
+    dead = script["dead"]
 
     # exact filtered ground truth over the live rows: ids are positional,
     # so row i of the concatenation is id i before and after the merge
@@ -1140,6 +1199,508 @@ def phase_live(dev, fi, qs, flts, f32_graph_recall: float):
     emit({"phase": "live", "upserts": LIVE_UPSERT, "replaced": LIVE_REPLACE,
           "deletes": LIVE_DELETE, "f32_graph_recall": f32_graph_recall,
           **steps})
+
+
+def merged_intervals(spans) -> list:
+    """Union of (start, end) intervals, sorted and merged."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(merged, a: float, b: float) -> float:
+    """Length of ``merged`` intervals inside [a, b]."""
+    return sum(max(0.0, min(e, b) - max(s, a)) for s, e in merged)
+
+
+def trace_summary(events, window: str, top: int = 5) -> dict:
+    """Read a ``torch.profiler`` chrome trace's events over the host range
+    named ``window``: the device's busy share (union of kernel, memcpy and
+    memset intervals over the window's wall time), the ``top`` device ops
+    by total time, each ``favor/...`` host range's total time (and the
+    device time inside it), and the ``top`` longest device-idle gaps with
+    the innermost ``favor/...`` range and host op they fell in."""
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    win = [e for e in xs if e.get("name") == window
+           and e.get("cat") == "user_annotation"]
+    if not win:
+        return {"error": f"no {window} range in the trace"}
+    w0 = float(win[0]["ts"])
+    w1 = w0 + float(win[0]["dur"])
+    dev = [e for e in xs if e.get("cat") in ("kernel", "gpu_memcpy",
+                                              "gpu_memset")
+           and w0 <= float(e["ts"]) <= w1]
+    merged = merged_intervals(
+        (float(e["ts"]), min(w1, float(e["ts"]) + float(e["dur"])))
+        for e in dev)
+    favor = [e for e in xs if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("favor/")
+             and e.get("name") != window and w0 <= float(e["ts"]) <= w1]
+    ranges = {}
+    for e in favor:
+        a = float(e["ts"])
+        b = a + float(e["dur"])
+        row = ranges.setdefault(e["name"], {"ms": 0.0, "count": 0,
+                                            "device_busy_ms": 0.0})
+        row["ms"] += (b - a) / 1e3
+        row["count"] += 1
+        row["device_busy_ms"] += overlap_us(merged, a, b) / 1e3
+    out = {"window_ms": (w1 - w0) / 1e3, "device_ops": len(dev),
+           "favor_ranges": ranges}
+    if not dev:
+        out["busy_share"] = None
+        out["note"] = "no device events in the trace: busy share not measured"
+        return out
+    busy = overlap_us(merged, w0, w1)
+    out["busy_ms"] = busy / 1e3
+    out["busy_share"] = busy / (w1 - w0)
+    by_name = {}
+    for e in dev:
+        row = by_name.setdefault(e["name"], [0.0, 0])
+        row[0] += float(e["dur"])
+        row[1] += 1
+    out["top_device_ops"] = [
+        {"name": n[:120], "ms": t / 1e3, "count": c}
+        for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        [:top]]
+    cpu = [e for e in xs if e.get("cat") == "cpu_op"
+           and w0 <= float(e["ts"]) <= w1]
+    gaps = [(merged[0][0] - w0, w0, merged[0][0])]
+    gaps += [(b[0] - a[1], a[1], b[0]) for a, b in zip(merged, merged[1:])]
+    gaps.append((w1 - merged[-1][1], merged[-1][1], w1))
+    gaps.sort(reverse=True)
+
+    def innermost(pool, t):
+        hit = [e for e in pool
+               if float(e["ts"]) <= t <= float(e["ts"]) + float(e["dur"])]
+        return max(hit, key=lambda e: float(e["ts"]))["name"] if hit else None
+
+    out["idle_ms"] = (w1 - w0 - busy) / 1e3
+    out["longest_idle_gaps"] = [
+        {"ms": g / 1e3, "at_ms": (a - w0) / 1e3,
+         "favor_range": innermost(favor, (a + b) / 2),
+         "host_op": innermost(cpu, (a + b) / 2)}
+        for g, a, b in gaps[:top]]
+    return out
+
+
+def load_serve(saved: Path):
+    """A fresh copy of the serve index from its saved files, on the card."""
+    from repro_torch.core import FavorIndex
+    fi = FavorIndex.load(str(saved))
+    check(fi.device.type == "cuda" and fi.quantize == "pq",
+          "the saved serve index loads onto the card with its PQ codes")
+    return fi
+
+
+def responses_match_query(out, fi, qs, flts, opts, label: str) -> None:
+    """Each response's ids, distance bits, route and p_hat equal
+    ``FavorIndex.query`` on the same BATCH-row batches."""
+    import numpy as np
+    check(len(out) == len(qs), f"{label}: {len(out)} responses for "
+          f"{len(qs)} requests")
+    for lo in range(0, len(qs), BATCH):
+        res = fi.query(qs[lo:lo + BATCH], flts[lo:lo + BATCH], opts)
+        part = out[lo:lo + BATCH]
+        ids = np.stack([r.ids for r in part])
+        dists = np.stack([r.dists for r in part])
+        brute = np.array([r.route == "brute" for r in part])
+        p_hat = np.array([r.p_hat for r in part], np.float32)
+        check(np.array_equal(ids, res.ids)
+              and np.array_equal(dists.view(np.uint32),
+                                 res.dists.view(np.uint32)),
+              f"{label}: engine ids and distance bits == query's "
+              f"(requests {lo}..{lo + len(part) - 1})")
+        check(np.array_equal(brute, res.routed_brute)
+              and np.array_equal(p_hat.view(np.uint32),
+                                 res.p_hat.view(np.uint32)),
+              f"{label}: engine routes and p_hat == query's")
+
+
+def same_responses(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(x.ids, y.ids)
+               and np.array_equal(x.dists.view(np.uint32),
+                                  y.dists.view(np.uint32))
+               and x.route == y.route for x, y in zip(a, b, strict=True))
+
+
+def submit_all(eng, qs, flts) -> None:
+    for i in range(len(qs)):
+        eng.submit(qs[i], flts[i])
+
+
+def engine_pass(fi, opts, qs, flts, label: str, obs=None) -> tuple:
+    """ENGINE_STEPS x BATCH requests through a ServeEngine at favor-anns'
+    batch, served with ``run()`` after one untimed warm-up step: the
+    responses held to ``FavorIndex.query``; request-latency percentiles,
+    steps, QPS and the launches of each kernel over the run; then
+    ENGINE_TIMED interleaved (query, step) pairs on the same batches for
+    the engine's host time per step beyond the query's own."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as Kn
+    from repro_torch.configs.favor_anns import FavorServeConfig
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(fi, opts, max_batch=FavorServeConfig.batch,
+                      max_wait_ms=2.0, obs=obs)
+    submit_all(eng, qs[:64], flts[:64])         # warm-up (not counted)
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    Kn.reset_launch_counts()
+    t0 = time.perf_counter()
+    submit_all(eng, qs, flts)
+    out = eng.run()
+    wall = time.perf_counter() - t0
+    launches = dict(Kn.launch_counts)
+    st = eng.stats
+    latency = eng.latency_percentiles()
+    responses_match_query(out, fi, qs, flts, opts, label)
+    query_ms, step_ms, submit_ms = [], [], []
+    for j in range(ENGINE_TIMED):
+        lo = (j % ENGINE_STEPS) * BATCH
+        bq, bf = qs[lo:lo + BATCH], flts[lo:lo + BATCH]
+        t0 = time.perf_counter()
+        fi.query(bq, bf, opts)
+        query_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        submit_all(eng, bq, bf)
+        t1 = time.perf_counter()
+        step = eng.step(force=True)
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        submit_ms.append(1e3 * (t1 - t0))
+        check(same_responses(step, out[lo:lo + BATCH]),
+              f"{label}: a timed step returns the run's responses")
+    extra = [s - q for s, q in zip(step_ms, query_ms)]
+    line = {"requests": len(qs), "steps": st["batches"],
+            "latency_ms": latency, "run_s": wall,
+            "qps": len(qs) / wall, "launches": launches,
+            "graph": st["graph"], "brute": st["brute"],
+            "graph_waves_avg": st["graph_waves_avg"],
+            "scorers": st["scorers"],
+            "query_ms": query_ms, "step_ms": step_ms,
+            "submit_ms_per_step": submit_ms,
+            "host_ms_per_step_beyond_query": float(np.median(extra)),
+            "host_ms_per_step_beyond_query_all": extra}
+    return line, out, eng
+
+
+def phase_engine(dev, saved: Path) -> dict:
+    """The serving engine on the card over fresh copies of the serve index
+    (loaded from ``saved``), at favor-anns' widths and options
+    (``FavorServeConfig().search_options()``, ``max_batch`` its batch):
+
+      1. engine vs query: ENGINE_STEPS x BATCH requests with the mixed
+         filters under favor-anns' ``use_pq=True`` and again with
+         ``graph_quant="pq"``; every response equals ``FavorIndex.query``
+         on the same batches (ids, distance bits, route, p_hat);
+      2. obs on vs off: full tracing, probes, shadows and profiler ranges
+         give the same bits;
+      3. one step under ``torch.profiler``: the device's busy share over
+         the step's wall time, its top ops, the ``favor/...`` ranges and
+         the longest idle gaps;
+      4. pipelined steps: two ``begin_batch`` calls finished in reverse
+         order, one from another thread, bit-identical to serial steps;
+         the overlap they get;
+      5. background merge: the live phase's mutation script through an
+         engine with ``merge_background=True``, stepping until the
+         controller commits: no deleted or replaced id ever returned, one
+         commit, and the result equal to a foreground merge's.
+    Returns each kernel's launches on the engine's main path."""
+    import gzip
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.favor_anns import FavorServeConfig
+    from repro_torch.core import filters as F
+    from repro_torch.core.options import ObsSpec
+    from repro_torch.data import synthetic
+    from repro_torch.obs import profiling
+    from repro_torch.serving import ServeEngine
+
+    cfg = FavorServeConfig()
+    check((cfg.dim, cfg.m0, cfg.k, cfg.ef, cfg.batch, cfg.pq_m,
+           cfg.pq_nbits, cfg.rerank) == (128, M0, K, EF, BATCH, PQ_M,
+                                         PQ_BITS, RERANK),
+          "the smoke's constants are favor-anns'")
+    fi = load_serve(saved)
+    n = ENGINE_STEPS * BATCH
+    qs = synthetic.make_queries(n, fi.index.dim, dataset_seed=SEED, seed=200)
+    flts, _ = mixed_filters(F, fi.schema, n)
+    opts_pq = cfg.search_options()
+    opts_gpq = cfg.search_options(graph_quant="pq")
+    line = {"phase": "engine", "n": fi.index.n, "d": fi.index.dim,
+            "max_batch": cfg.batch,
+            "options": {k: v for k, v in vars(opts_pq).items()
+                        if v is not None}}
+    need = {"use_pq": ("pq_adc_topr", "gather_distance"),
+            "use_pq+graph_pq": ("pq_adc_topr", "pq_adc_gather")}
+
+    # -- 1. engine vs query --------------------------------------------------
+    runs = {}
+    for label, opts in (("use_pq", opts_pq), ("use_pq+graph_pq", opts_gpq)):
+        pass_line, out, _ = engine_pass(fi, opts, qs, flts, label)
+        for kname in need[label]:
+            check(pass_line["launches"][kname] > 0,
+                  f"engine {label}: {kname} launched: "
+                  f"{pass_line['launches']}")
+        check(pass_line["scorers"]["use_pallas"] is True,
+              "the engine reports the hand kernels serving the routes")
+        runs[label] = out
+        line[label] = pass_line
+    emit(dict(line, part="engine_vs_query"))
+
+    # -- 2. obs on vs off ----------------------------------------------------
+    spec = ObsSpec(trace_sample=1.0, probe_sample=1.0, shadow_sample=1.0,
+                   kernel_annotations=True)
+    try:
+        obs_line, out, eng = engine_pass(fi, opts_pq, qs, flts, "obs",
+                                         obs=spec)
+    finally:
+        profiling.set_kernel_annotations(False)
+    check(same_responses(out, runs["use_pq"]),
+          "obs on: the same responses, bit for bit, as obs off")
+    snap = eng.obs.snapshot()
+    err = snap["histograms"]["favor_estimator_abs_error"]["series"][""]
+    text = eng.obs.prometheus_text()
+    tr = eng.obs.tracer.traces[-1]
+    obs_part = {
+        "run_s": obs_line["run_s"], "run_s_obs_off": line["use_pq"]["run_s"],
+        "steps": obs_line["steps"], "traces": len(eng.obs.tracer.traces),
+        "stage_ms": tr.stage_ms(), "trace_attrs": tr.attrs,
+        "estimator_probes": err["count"],
+        "estimator_abs_error_mean": err["sum"] / max(err["count"], 1),
+        "route_flips": snap["counters"][
+            "favor_estimator_route_flips_total"]["series"],
+        "route_confusion": snap["counters"]["favor_route_shadow_total"][
+            "series"],
+        "route_regret_s": snap["counters"][
+            "favor_route_regret_seconds_total"]["series"],
+        "prometheus_lines": len(text.splitlines())}
+    steps_now = eng.stats["batches"]
+    check(err["count"] == steps_now > 0
+          and sum(obs_part["route_confusion"].values()) == steps_now,
+          f"obs: one probe and one shadow per step ({steps_now}): "
+          f"{obs_part}")
+    emit({"phase": "engine", "part": "obs", **obs_part})
+
+    # -- 3. one step under torch.profiler ------------------------------------
+    from torch.profiler import ProfilerActivity, profile, record_function
+    eng = ServeEngine(fi, opts_pq, max_batch=cfg.batch,
+                      obs=ObsSpec(kernel_annotations=True, trace_sample=0.0))
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-trace-", dir=ROOT))
+    try:
+        submit_all(eng, qs[:BATCH], flts[:BATCH])
+        eng.step(force=True)                      # warm-up
+        submit_all(eng, qs[:BATCH], flts[:BATCH])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with record_function("favor/engine_step"):
+                step = eng.step(force=True)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        profiling.set_kernel_annotations(False)
+        check(same_responses(step, runs["use_pq"][:BATCH]),
+              "profiled step: the same responses")
+        path = tmp / "engine_step_trace.json"
+        prof.export_chrome_trace(str(path))
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        prof_part = trace_summary(events, "favor/engine_step")
+        prof_part["step_wall_ms_profiled"] = 1e3 * step_s
+        prof_part["step_wall_ms_unprofiled"] = float(
+            np.median(line["use_pq"]["step_ms"]))
+        keep = os.environ.get("FAVOR_TRACE_DIR")
+        if keep:
+            Path(keep).mkdir(parents=True, exist_ok=True)
+            with open(path, "rb") as src, gzip.open(
+                    Path(keep) / "engine_step_trace.json.gz", "wb") as dst:
+                shutil.copyfileobj(src, dst)
+    finally:
+        profiling.set_kernel_annotations(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "engine", "part": "profile", **prof_part})
+
+    # -- 4. pipelined steps --------------------------------------------------
+    eng = ServeEngine(fi, opts_pq, max_batch=BATCH)
+    submit_all(eng, qs[:64], flts[:64])
+    eng.run()
+    batches = [(qs[:BATCH], flts[:BATCH]), (qs[BATCH:2 * BATCH],
+                                           flts[BATCH:2 * BATCH])]
+    want = [runs["use_pq"][:BATCH], runs["use_pq"][BATCH:2 * BATCH]]
+    rounds = []
+    for _ in range(PIPE_ROUNDS):
+        serial = []
+        for (bq, bf), w in zip(batches, want):
+            submit_all(eng, bq, bf)
+            t0 = time.perf_counter()
+            st = eng.begin_batch(force=True)
+            t1 = time.perf_counter()
+            got = eng.finish_batch(st)
+            t2 = time.perf_counter()
+            check(same_responses(got, w), "serial step: the run's responses")
+            serial.append((1e3 * (t1 - t0), 1e3 * (t2 - t1)))
+        for bq, bf in batches:
+            submit_all(eng, bq, bf)
+        held = []
+        t0 = time.perf_counter()
+        a = eng.begin_batch(force=True)
+        t1 = time.perf_counter()
+        b = eng.begin_batch(force=True)
+        t2 = time.perf_counter()
+        got_b = eng.finish_batch(b)
+        worker = threading.Thread(target=lambda: held.append(
+            eng.finish_batch(a)))
+        worker.start()
+        worker.join()
+        t3 = time.perf_counter()
+        check(len(held) == 1 and same_responses(held[0], want[0])
+              and same_responses(got_b, want[1]),
+              "pipelined steps finished in reverse order (one on another "
+              "thread): bit-identical to serial steps")
+        serial_ms = sum(sum(x) for x in serial)
+        pipe_ms = 1e3 * (t3 - t0)
+        rounds.append({"serial_begin_finish_ms": serial,
+                       "serial_ms": serial_ms, "pipelined_ms": pipe_ms,
+                       "begin_a_ms": 1e3 * (t1 - t0),
+                       "begin_b_ms": 1e3 * (t2 - t1),
+                       "overlap_ms": serial_ms - pipe_ms})
+    overlap = [r["overlap_ms"] for r in rounds]
+    emit({"phase": "engine", "part": "pipelined", "rounds": rounds,
+          "overlap_ms_median": float(np.median(overlap)),
+          "overlap_share_median": float(np.median(
+              [r["overlap_ms"] / r["serial_ms"] for r in rounds]))})
+
+    # -- 5. background merge -------------------------------------------------
+    merge_part, merge_launches = engine_merge(saved, qs, flts, opts_pq)
+    emit({"phase": "engine", "part": "background_merge", **merge_part})
+    return {"pq_adc_topr": line["use_pq"]["launches"]["pq_adc_topr"],
+            "gather_distance": line["use_pq"]["launches"]["gather_distance"],
+            "pq_adc_gather":
+                line["use_pq+graph_pq"]["launches"]["pq_adc_gather"],
+            "filtered_topk": merge_launches.get("filtered_topk", 0)}
+
+
+def engine_merge(saved: Path, qs, flts, opts) -> tuple:
+    """Part 5 of the engine phase: the live script through a background-
+    merging engine; MERGE_BASELINE_STEPS steps with the delta unmerged and
+    no merge running, then ``merge_delta_frac`` set so the next step pokes
+    the worker, and steps until it commits.  Returns the part's numbers and
+    the serving thread's launches while the merge ran."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as Kn
+    from repro_torch.configs.favor_anns import FavorServeConfig
+    from repro_torch.serving import ServeEngine
+
+    fi, fg = load_serve(saved), load_serve(saved)
+    script = live_script(fi.index.n, fi.index.dim, fi.schema)
+    dead = script["dead"]
+    eng = ServeEngine(fi, opts, max_batch=FavorServeConfig.batch,
+                      merge_background=True)   # worker idles: no trigger
+    ctl = eng._merge_ctl
+    apply_live_script(eng, script)
+    served = [0]
+
+    def serve_batch(j):
+        lo = (j % ENGINE_STEPS) * BATCH
+        submit_all(eng, qs[lo:lo + BATCH], flts[lo:lo + BATCH])
+        t0 = time.perf_counter()
+        out = eng.step(force=True)
+        dt = 1e3 * (time.perf_counter() - t0)
+        check(not any(np.isin(r.ids, dead).any() for r in out),
+              "background merge: a deleted or replaced id came back")
+        served[0] += 1
+        return dt, out
+
+    base_ms = [serve_batch(j)[0] for j in range(MERGE_BASELINE_STEPS)]
+    # the commit's own time, beside the stall the engine records (which
+    # also counts the wait for the engine lock an in-flight step holds)
+    commit_s = []
+    backend_commit = eng.backend.merge_commit
+
+    def timed_commit(prep):
+        t = time.perf_counter()
+        try:
+            return backend_commit(prep)
+        finally:
+            commit_s.append(time.perf_counter() - t)
+
+    eng.backend.merge_commit = timed_commit
+    torch.cuda.synchronize()
+    Kn.reset_launch_counts()
+    eng.merge_delta_frac = MERGE_FRAC      # crossed: the next finish pokes
+    t0 = time.perf_counter()
+    during, steps, j = [], [], 0
+    while ctl.merges == 0 and time.perf_counter() - t0 < MERGE_TIMEOUT_S:
+        active = eng._m_merge_active.value() > 0
+        dt, _ = serve_batch(j)
+        still = eng._m_merge_active.value() > 0
+        steps.append({"ms": dt, "merge_active_at_start": active,
+                      "merge_active_at_end": still})
+        if active and still:
+            during.append(dt)
+        j += 1
+    wait_s = time.perf_counter() - t0
+    check(ctl.merges == 1 and ctl.stale == 0,
+          f"background merge committed once ({ctl.merges}, stale "
+          f"{ctl.stale}) within {MERGE_TIMEOUT_S} s")
+    threads = {k: dict(v) for k, v in Kn.launch_threads.items()}
+    worker = threads.get("favor-merge", {})
+    serving = threads.get(threading.current_thread().name, {})
+    check(worker.get("gather_distance", 0) > 0,
+          f"the merge worker's waves ran gather_distance: {threads}")
+    check(serving.get("filtered_topk", 0) > 0,
+          f"the steps' delta scans ran filtered_topk: {threads}")
+    after = [serve_batch(j)[1] for j in range(2)]
+    st = eng.stats["mutations"]
+    check(st["auto_merges"] == 1 and st["delta_rows"] == 0
+          and st["base_rows"] == fi.index.n, f"merge stats: {st}")
+    apply_live_script(fg, script)
+    fg.merge()
+    for j, out in enumerate(after):
+        lo = j * BATCH
+        res = fg.query(qs[lo:lo + BATCH], flts[lo:lo + BATCH], opts)
+        ids = np.stack([r.ids for r in out])
+        dists = np.stack([r.dists for r in out])
+        check(np.array_equal(ids, res.ids)
+              and np.array_equal(dists.view(np.uint32),
+                                 res.dists.view(np.uint32)),
+              "after the commit: a batch equals the foreground-merged "
+              "index's, bit for bit")
+    eng.close()
+    part = {"upserts": LIVE_UPSERT, "replaced": LIVE_REPLACE,
+            "deletes": LIVE_DELETE, "merge_delta_frac": MERGE_FRAC,
+            "merge_s": eng._m_merge_s.sum(),
+            "commit_stall_s": eng._m_merge_stall.sum(),
+            "commit_s": commit_s,
+            "wait_to_commit_s": wait_s, "steps_served": served[0],
+            "steps_during_merge": len(during),
+            "step_ms_during_merge": during, "steps_after_trigger": steps,
+            "step_ms_no_merge": base_ms,
+            "p50_ms_during_merge": (float(np.percentile(during, 50))
+                                    if during else None),
+            "p99_ms_during_merge": (float(np.percentile(during, 99))
+                                    if during else None),
+            "p50_ms_no_merge": float(np.percentile(base_ms, 50)),
+            "p99_ms_no_merge": float(np.percentile(base_ms, 99)),
+            "launches_by_thread": threads,
+            "merge_worker_gather_distance": worker.get("gather_distance", 0)}
+    return part, serving
 
 
 def phase_widths(rates, kernels, gathers, widths, top: int = 3) -> None:
@@ -1263,14 +1824,23 @@ def main() -> int:
         ln.strip() for ln in logs.get("pq_adc.cu", "").splitlines()
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     kernels["embedding_bag"] = phase_embedding_bag(dev, rates)
-    launches, widths = phase_serve(dev)
-    phase_widths(rates, kernels, gathers, widths)
-    del gathers
-    # each kernel's launches on the pass of the main path that runs it
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-index-", dir=ROOT))
+    try:
+        saved = tmp / "serve"
+        launches, widths = phase_serve(dev, saved)
+        phase_widths(rates, kernels, gathers, widths)
+        del gathers
+        torch.cuda.empty_cache()
+        engine_launches = phase_engine(dev, saved)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # each kernel's launches on the pass of the main path that runs it, and
+    # on the serving engine's run that drives it
     main_pass = {"filtered_topk": "f32", "gather_distance": "f32",
                  "pq_adc_topr": "use_pq", "pq_adc_gather": "use_pq+graph_pq"}
     for kname, pass_ in main_pass.items():
         kernels[kname]["launches"] = launches[pass_][kname]
+        kernels[kname]["engine_launches"] = engine_launches[kname]
     emit({"kernels": [{k: v for k, v in row.items() if k != "shape"}
                       for row in kernels.values()]})
     print(smi, flush=True)

@@ -5,6 +5,8 @@
     search_brute(queries, programs, opts, valid) -> (ids, dists)
     validate(opts)                               -> raises on options the
                                                     index cannot serve
+    version() / versions()                       -> data epochs (aggregate /
+                                                    per component)
 
 ``valid`` is the bucket-padding contract (core.batching): rows with
 ``valid=False`` are pad rows -- they carry always-false filter programs,
@@ -17,8 +19,12 @@ tensors: the brute route as the f32 scan (``filtered_topk``) or, under
 the graph route with the scorer ``graph_quant`` names.  A live index's
 delta segment is scanned exactly and composed into both routes' results
 on the device; tombstones are +inf norms on the brute scans and the
-``alive`` gate of the traversal.  The sharded backend comes in a later
-slice of the port.
+``alive`` gate of the traversal.  The mutation API (``upsert`` / ``delete``
+/ ``merge`` and the background merge's ``merge_prepare`` / ``merge_commit``)
+passes through to the FavorIndex.  The scans and the traversal run inside
+``obs.profiling.annotate`` ranges (named as in the JAX package) when kernel
+annotations are on.  The sharded backend comes in a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ from .options import SearchOptions
 from .scoring import scorer_for
 from .search import favor_graph_search
 from ..index.delta import compose_topk_dev
+# gated host-side profiler ranges (nullcontext unless ObsSpec enables
+# kernel annotations); obs.profiling imports nothing from core
+from ..obs.profiling import annotate as _annotate
 
 if TYPE_CHECKING:
     from .favor import FavorIndex
@@ -71,7 +80,35 @@ class LocalBackend:
                 f"with quantize={opts.graph_quant!r} codes "
                 f"(this one has {self.index.quantize!r})")
 
-    # -- live index (index subsystem) ----------------------------------------
+    def version(self) -> int:
+        """Data epoch of the underlying FavorIndex: bumped whenever the
+        served rows change."""
+        return self.index.version()
+
+    def versions(self) -> dict:
+        """Scoped epochs (index subsystem): vectors / attributes / graph."""
+        return self.index.versions()
+
+    # -- live mutation passthrough (index subsystem) --------------------------
+    def upsert(self, vectors, ints=None, floats=None, *, replace=None):
+        return self.index.upsert(vectors, ints, floats, replace=replace)
+
+    def delete(self, ids):
+        return self.index.delete(ids)
+
+    def merge(self, *, wave: int = 512) -> dict:
+        return self.index.merge(wave=wave)
+
+    def merge_prepare(self, *, wave: int = 512, on_wave=None):
+        """Background-merge phase 1 (no served-state mutation); see
+        FavorIndex.merge_prepare."""
+        return self.index.merge_prepare(wave=wave, on_wave=on_wave)
+
+    def merge_commit(self, prep):
+        """Background-merge phase 2 (cheap atomic swap); see
+        FavorIndex.merge_commit."""
+        return self.index.merge_commit(prep)
+
     def live_view(self):
         return self.index.live_view()
 
@@ -106,8 +143,9 @@ class LocalBackend:
                                              k=opts.k,
                                              p_min=idx.sel_cfg.p_min,
                                              xp=torch)
-            base = favor_graph_search(idx.g, queries, programs, D,
-                                      opts.search_config(), valid=valid)
+            with _annotate("favor/local/graph_search"):
+                base = favor_graph_search(idx.g, queries, programs, D,
+                                          opts.search_config(), valid=valid)
         else:
             b, dev = int(queries.shape[0]), self.device
             zero = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -137,22 +175,26 @@ class LocalBackend:
             dists = torch.full((b, opts.k), float("inf"), dtype=torch.float32,
                                device=dev)
         elif not opts.use_pq:
-            ids, dists = prefbf.prefbf_topk(pv, pn, pi, pf, queries, programs,
-                                            k=opts.k, chunk=idx.prefbf_chunk,
-                                            valid=valid)
+            with _annotate("favor/local/prefbf_scan"):
+                ids, dists = prefbf.prefbf_topk(pv, pn, pi, pf, queries,
+                                                programs, k=opts.k,
+                                                chunk=idx.prefbf_chunk,
+                                                valid=valid)
         else:
             from ..quant import adc
             rr = opts.rerank if opts.rerank is not None else idx.rerank
             if idx.quantize == "pq":
-                ids, dists = adc.pq_prefbf_topk(
-                    idx._codes, pn, pi, pf, queries, programs, idx._cb_dev[0],
-                    pv, k=opts.k, rerank=rr, chunk=idx.prefbf_chunk,
-                    valid=valid)
+                with _annotate("favor/local/pq_adc_scan"):
+                    ids, dists = adc.pq_prefbf_topk(
+                        idx._codes, pn, pi, pf, queries, programs,
+                        idx._cb_dev[0], pv, k=opts.k, rerank=rr,
+                        chunk=idx.prefbf_chunk, valid=valid)
             else:
-                ids, dists = adc.sq_prefbf_topk(
-                    idx._codes, *idx._cb_dev, pn, pi, pf, queries, programs,
-                    pv, k=opts.k, rerank=rr, chunk=idx.prefbf_chunk,
-                    valid=valid)
+                with _annotate("favor/local/sq_adc_scan"):
+                    ids, dists = adc.sq_prefbf_topk(
+                        idx._codes, *idx._cb_dev, pn, pi, pf, queries,
+                        programs, pv, k=opts.k, rerank=rr,
+                        chunk=idx.prefbf_chunk, valid=valid)
         delta = self._delta()
         if delta is None:
             return ids, dists

@@ -20,11 +20,14 @@ Live:    ``upsert`` / ``delete`` stream rows into a delta segment and
           into the graph (index.bulk) with positional ids kept.
 
 The online pipeline lives in router.execute; this class owns the offline
-state and exposes it through a LocalBackend.  Everything runs on the CUDA
-device unless the caller passes ``device="cpu"``; with no CUDA device the
-default raises instead of falling back to the CPU.  ``save``/``load`` use
-the JAX package's ``.npz`` layout, so an index moves between the two
-packages unchanged, quantization state included.
+state and exposes it through a LocalBackend.  ``query(queries, filters,
+SearchOptions(...))`` is the typed API; ``search(**kwargs)`` and the
+pre-BuildSpec constructor kwargs remain as deprecated shims, as in the JAX
+package.  Everything runs on the CUDA device unless the caller passes
+``device="cpu"``; with no CUDA device the default raises instead of falling
+back to the CPU.  ``save``/``load`` use the JAX package's ``.npz``
+layout, so an index moves between the two packages unchanged,
+quantization state included.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from . import filters as F
-from . import prefbf, selectivity
+from . import prefbf, selectivity, selector
 from .backend import LocalBackend
 from .hnsw import HnswIndex, HnswParams, build_hnsw
 from .options import BuildSpec, QuantSpec, SearchOptions
@@ -48,6 +51,9 @@ from ..index.epochs import ComponentEpochs
 from ..index.live import LiveState
 
 __all__ = ["FavorIndex", "SearchResult", "resolve_device"]
+
+_LEGACY_BUILD_KW = ("sel_cfg", "prefbf_chunk", "quantize", "pq_m", "pq_nbits",
+                    "pq_train_iters", "pq_train_sample", "rerank")
 
 
 @dataclass
@@ -65,23 +71,60 @@ class _MergePrep:
     g: dict
 
 
+def _spec_from_legacy(kw: dict) -> BuildSpec:
+    """Map the pre-BuildSpec __init__ kwargs onto a BuildSpec."""
+    def get(name, default):
+        return kw.get(name) if kw.get(name) is not None else default
+    quant = None
+    if kw.get("quantize") is not None:
+        quant = QuantSpec(kind=kw["quantize"], m=get("pq_m", 8),
+                          nbits=get("pq_nbits", 8),
+                          train_iters=get("pq_train_iters", 20),
+                          train_sample=get("pq_train_sample", 65536),
+                          rerank=get("rerank", 4))
+    return BuildSpec(selector=kw.get("sel_cfg") or selector.SelectorConfig(),
+                     prefbf_chunk=get("prefbf_chunk", 8192), quant=quant)
+
+
 class FavorIndex:
     """Single-device FAVOR index; execution goes through a LocalBackend."""
 
     def __init__(self, index: HnswIndex, attrs: F.AttributeTable,
                  spec: BuildSpec | None = None, *, codebook=None,
-                 codes=None, device=None):
+                 codes=None, device=None, **legacy):
         self.device = resolve_device(device)
-        if spec is None:
-            spec = BuildSpec()
-        elif not isinstance(spec, BuildSpec):
+        if isinstance(spec, selector.SelectorConfig):
+            # the JAX package's pre-BuildSpec third positional was sel_cfg
+            if legacy.get("sel_cfg") is not None:
+                raise ValueError("sel_cfg passed both positionally and by "
+                                 "keyword")
+            legacy["sel_cfg"], spec = spec, None
+        elif spec is not None and not isinstance(spec, BuildSpec):
             raise TypeError("spec must be a BuildSpec, got "
                             f"{type(spec).__name__}")
+        unknown = set(legacy) - set(_LEGACY_BUILD_KW)
+        if unknown:
+            raise TypeError(f"unexpected FavorIndex kwargs: {sorted(unknown)}")
+        if any(v is not None for v in legacy.values()):
+            if spec is not None:
+                raise ValueError("pass either spec=BuildSpec(...) or legacy "
+                                 "kwargs, not both")
+            warnings.warn(
+                "FavorIndex(sel_cfg=/quantize=/pq_*=/rerank=...) is "
+                "deprecated; pass spec=BuildSpec(...)",
+                DeprecationWarning, stacklevel=2)
+            spec = _spec_from_legacy(legacy)
+        if spec is None:
+            spec = BuildSpec()
         if spec.quant is None and codebook is not None:
             # a given codebook implies its quant kind and geometry
             from ..quant import PQCodebook
-            q = (QuantSpec(kind="pq", m=codebook.m, nbits=codebook.nbits)
-                 if isinstance(codebook, PQCodebook) else QuantSpec(kind="sq"))
+            rr = legacy.get("rerank")
+            rr = rr if rr is not None else 4
+            q = (QuantSpec(kind="pq", m=codebook.m, nbits=codebook.nbits,
+                           rerank=rr)
+                 if isinstance(codebook, PQCodebook)
+                 else QuantSpec(kind="sq", rerank=rr))
             spec = BuildSpec(hnsw=spec.hnsw, selector=spec.selector,
                              prefbf_chunk=spec.prefbf_chunk, quant=q)
         self.spec = spec
@@ -233,6 +276,32 @@ class FavorIndex:
         """Typed search API: one SearchOptions drives routing + execution."""
         return execute(self.backend, queries, filters, opts or SearchOptions())
 
+    def search(self, queries, filters, k: int = 10, ef: int = 100, *,
+               pbar_min: float = 0.5, gamma: float = 1.0,
+               force: str | None = None, use_pallas: bool = False,
+               cand_cap: int = 0, use_pq: bool = False,
+               rerank: int | None = None) -> SearchResult:
+        """Deprecated kwarg shim over ``query``, kept so the JAX package's
+        pre-SearchOptions callers run unmodified.  ``use_pallas`` is
+        accepted and not acted on: the device picks kernel or plain
+        version (``SearchOptions``)."""
+        warnings.warn(
+            "FavorIndex.search(k=, ef=, ...) is deprecated; use "
+            "FavorIndex.query(queries, filters, SearchOptions(...))",
+            DeprecationWarning, stacklevel=2)
+        opts = SearchOptions(k=k, ef=ef, pbar_min=pbar_min, gamma=gamma,
+                             force=force, cand_cap=cand_cap, use_pq=use_pq,
+                             rerank=rerank)
+        return self.query(queries, filters, opts)
+
+    def bytes_per_vector(self, quantized: bool = False) -> int:
+        """Bytes streamed per DB row by the brute scan (float32 vs codes)."""
+        if quantized:
+            if self.codebook is None:
+                raise ValueError("index is not quantized")
+            return self.codebook.bytes_per_vector()
+        return 4 * self.index.dim
+
     # -- live mutation API (index subsystem) ----------------------------------
     def version(self) -> int:
         """Aggregate data epoch: any component bump changes it."""
@@ -241,6 +310,27 @@ class FavorIndex:
     def versions(self) -> dict:
         """Scoped epochs (vectors / attributes / graph)."""
         return self.epochs.as_dict()
+
+    def bump_version(self, components: tuple[str, ...] | None = None) -> int:
+        """Mark served rows as changed (rebuild, attribute update): the
+        epochs of ``components`` (subset of vectors / attributes / graph;
+        None = all) move, and the device arrays are uploaded again from
+        the host arrays, so an in-place edit of ``index`` or ``attrs`` is
+        served from then on."""
+        if components is None:
+            self.epochs.bump_all()
+        else:
+            self.epochs.bump(*components)
+        self.prefbf_chunk, pf, self.g = self._device_arrays(self.index,
+                                                            self.attrs)
+        self._pn0 = pf[1]
+        self._pf = (pf if self._alive is None else
+                    (pf[0], self._masked_norms(pf[1], self._alive), pf[2],
+                     pf[3]))
+        self._attach_scorer_arrays()
+        if self._alive is not None:
+            self.g["alive"] = torch.as_tensor(self._alive, device=self.device)
+        return self.epochs.total
 
     def _ensure_live(self) -> LiveState:
         if self.live is None:
@@ -299,7 +389,8 @@ class FavorIndex:
                     "deletes": 0, "replaced": 0, "missing_deletes": 0}
         return self.live.stats()
 
-    def merge_prepare(self, *, wave: int = 512) -> "_MergePrep | None":
+    def merge_prepare(self, *, wave: int = 512,
+                      on_wave=None) -> "_MergePrep | None":
         """Phase 1 of a merge: snapshot the delta and run the expensive work
         (bulk graph build with its candidate searches on the device,
         attribute concat, scan-array padding, code re-encode with the
@@ -308,7 +399,10 @@ class FavorIndex:
         The snapshot boundary is ``cnt = delta.count`` read *before* any
         array reference (append never rewrites rows below ``count`` and
         ``_grow`` reallocates, so rows ``[:cnt]`` of whatever arrays are
-        then seen are stable).  Returns None when there is nothing to merge.
+        then seen are stable).  Safe to run on another thread while serving
+        continues.  ``on_wave`` is ``bulk_add``'s pacing hook, called
+        before each device wave.  Returns None when there is nothing to
+        merge.
         """
         from ..index.bulk import bulk_add
         live = self.live
@@ -323,7 +417,7 @@ class FavorIndex:
         link = d.alive[:cnt].copy()
         graph_epoch = self.epochs.graph
         new_index = bulk_add(index, vecs, wave=wave, link=link,
-                             device=self.device)
+                             on_wave=on_wave, device=self.device)
         new_attrs = F.AttributeTable(
             self.schema,
             np.concatenate([attrs.ints, ints]),

@@ -5,6 +5,7 @@
                    scan chunking, optional QuantSpec
   SearchOptions -- per-query-batch online knobs (k/ef, routing force,
                    termination)
+  ObsSpec       -- observability policy of one serving stack (repro_torch.obs)
 
 All three validate eagerly in ``__post_init__``.
 """
@@ -68,6 +69,75 @@ class BuildSpec:
 
 
 @dataclass(frozen=True)
+class ObsSpec:
+    """Observability policy for one serving stack (``repro.obs``).
+
+    ``enabled=False`` turns off tracing, probes and kernel annotations
+    wholesale -- the engine still keeps its registry counters (they back
+    ``ServeEngine.stats``) but the router's hot path takes zero extra
+    branches per stage and results are bit-identical.
+
+    ``trace_sample`` is the fraction of engine batches that get a full
+    per-stage span trace (deterministic 1-in-N, not random, so runs
+    reproduce); traced batches whose wall time exceeds ``slow_ms`` land
+    per-query entries -- filter signature, p_hat, route, ef, stage
+    timings -- in a ``slow_cap``-bounded ring buffer (``slow_ms=None``
+    disables the slow-query log).
+
+    ``probe_sample`` is the fraction of batches on which one query's
+    estimated selectivity is checked against the filter's *true* match
+    fraction over the corpus attributes (estimator-accuracy error
+    histogram + route-flip counter); ``shadow_sample`` is the fraction on
+    which one query is additionally re-executed on BOTH routes against the
+    cache-unwrapped backend to populate the route-decision confusion
+    counter (would-have-been-faster-on-the-other-route).  Both default to
+    0.0: they cost real work and are bench/diagnostic knobs, not
+    steady-state ones.
+
+    ``kernel_annotations`` wraps backend dispatches in host-side
+    ``torch.profiler.record_function`` ranges named by route and bucket, so
+    a ``torch.profiler`` capture attributes device time to kernels by
+    route (``repro_torch.obs.profiling``).
+
+    ``latency_buckets`` are the shared histogram upper bounds (seconds)
+    for request latency and per-stage timings.
+    """
+    enabled: bool = True
+    trace_sample: float = 1.0
+    trace_cap: int = 256
+    slow_ms: float | None = 100.0
+    slow_cap: int = 128
+    probe_sample: float = 0.0
+    shadow_sample: float = 0.0
+    kernel_annotations: bool = False
+    latency_buckets: tuple = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                              0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
+
+    def __post_init__(self):
+        for name in ("trace_sample", "probe_sample", "shadow_sample"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"ObsSpec.{name} must be in [0, 1], "
+                                 f"got {v}")
+        for name in ("trace_cap", "slow_cap"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"ObsSpec.{name} must be >= 1, "
+                                 f"got {getattr(self, name)}")
+        if self.slow_ms is not None and self.slow_ms < 0.0:
+            raise ValueError(f"ObsSpec.slow_ms must be None or >= 0, "
+                             f"got {self.slow_ms}")
+        buckets = tuple(float(b) for b in self.latency_buckets)
+        if not buckets or any(b <= 0 for b in buckets) or \
+                any(a >= b for a, b in zip(buckets, buckets[1:])):
+            raise ValueError("ObsSpec.latency_buckets must be strictly "
+                             f"increasing positive bounds, got {buckets}")
+        object.__setattr__(self, "latency_buckets", buckets)
+
+    def with_(self, **overrides) -> "ObsSpec":
+        return replace(self, **overrides)
+
+
+@dataclass(frozen=True)
 class SearchOptions:
     """Online per-batch options.
 
@@ -87,6 +157,12 @@ class SearchOptions:
     set, the router bucket-pads the estimate call and the graph/brute
     sub-batches to the BatchSpec's power-of-two ladder; results are
     bit-identical to ``batch=None``.
+
+    There is no ``use_pallas``: the tensors' device picks kernel or plain
+    version (the hand-written kernels on the card, the plain versions on
+    the CPU), and on the card no option selects the plain version.
+    ``ServeEngine.stats["scorers"]["use_pallas"]`` reports whether the
+    kernels serve the routes.
     """
     k: int = 10
     ef: int = 100

@@ -127,7 +127,7 @@ def _link_from_row(b: _Builder, node: int, ids: np.ndarray,
 
 def bulk_add(index: HnswIndex, new_vectors: np.ndarray, *,
              wave: int = 512, link: np.ndarray | None = None,
-             device=None) -> HnswIndex:
+             on_wave=None, device=None) -> HnswIndex:
     """Append ``new_vectors`` to a finalized index and return the grown one.
 
     ``link`` (optional bool mask per new row) marks which rows participate
@@ -135,6 +135,10 @@ def bulk_add(index: HnswIndex, new_vectors: np.ndarray, *,
     position, keeping ids positional -- but never linked, which is how
     ``merge()`` carries already-tombstoned delta slots.  Rows keep their
     order: new row j becomes node ``index.n + j``.
+
+    ``on_wave`` (optional zero-arg callable) is invoked before each device
+    wave; background merges use it as a pacing point to yield to
+    foreground serving without holding any lock across the build.
 
     The candidate searches run on ``device`` (None = the CUDA device,
     which raises without a card; pass "cpu" for the plain versions).
@@ -174,6 +178,9 @@ def bulk_add(index: HnswIndex, new_vectors: np.ndarray, *,
             i += wb
             continue
 
+        if on_wave is not None:
+            on_wave()
+
         # one batched candidate search over the pre-wave snapshot
         npad = _pow2_at_least(max(b.n, _MIN_PAD))
         g = _graph_view(b, npad, device)
@@ -209,7 +216,8 @@ def bulk_add(index: HnswIndex, new_vectors: np.ndarray, *,
 
 
 def build_hnsw_bulk(vectors: np.ndarray, params: HnswParams | None = None,
-                    *, wave: int = 512, device=None) -> HnswIndex:
+                    *, wave: int = 512, on_wave=None,
+                    device=None) -> HnswIndex:
     """Build an index from scratch through the wave pipeline (a from-zero
     ``bulk_add``)."""
     params = params or HnswParams()
@@ -220,4 +228,5 @@ def build_hnsw_bulk(vectors: np.ndarray, params: HnswParams | None = None,
         node_level=np.zeros((0,), np.int16),
         entry_point=-1, max_level=-1, delta_d=0.0, params=params,
         norms=np.zeros((0,), np.float32))
-    return bulk_add(empty, vectors, wave=wave, device=device)
+    return bulk_add(empty, vectors, wave=wave, on_wave=on_wave,
+                    device=device)

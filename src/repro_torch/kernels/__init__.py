@@ -27,7 +27,12 @@ missing.
 
 ``launch_counts`` counts the kernel launches each wrapper made, so a run can
 show that its main path went through the kernels; ``launch_widths`` counts
-the graph route's gather launches by their (B, M) width.
+the graph route's gather launches by their (B, M) width, and
+``launch_threads`` the launches by the name of the thread that made them
+(the background merge's worker is ``favor-merge``), so a run can tell a
+step's launches from a concurrent merge's.  All three are updated under a
+lock of their own: serving threads and a background merge launch kernels
+at the same time.
 """
 from __future__ import annotations
 
@@ -53,23 +58,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts = {name: 0 for name in SOURCES}
 launch_widths: dict[str, dict[tuple[int, int], int]] = {
     name: {} for name in SOURCES}
+launch_threads: dict[str, dict[str, int]] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-        launch_widths[name].clear()
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+            launch_widths[name].clear()
+        launch_threads.clear()
 
 
 def count_launch(name: str, width: tuple[int, int] | None = None) -> None:
-    """One launch of kernel ``name``; ``width`` (B, M), where given, is
-    counted in ``launch_widths`` too."""
-    launch_counts[name] += 1
-    if width is not None:
-        widths = launch_widths[name]
-        widths[width] = widths.get(width, 0) + 1
+    """One launch of kernel ``name``, counted for the calling thread too;
+    ``width`` (B, M), where given, is counted in ``launch_widths``."""
+    thread = threading.current_thread().name
+    with _count_lock:
+        launch_counts[name] += 1
+        per = launch_threads.setdefault(thread, {})
+        per[name] = per.get(name, 0) + 1
+        if width is not None:
+            widths = launch_widths[name]
+            widths[width] = widths.get(width, 0) + 1
 
 
 def nvcc_path() -> str:

@@ -838,3 +838,128 @@ def test_bucketing_and_live_index_on_card(dev):
         assert not np.isin(r.ids, dead).any(), force
         own = fi.query(new[1:], PF.TrueFilter(), opts.with_(force=force))
         assert (own.ids[:, 0] == ids[1:]).all(), force
+
+
+def _card_index(seed=5, n=2000, d=16):
+    from repro_torch.core import FavorIndex, HnswParams
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    attrs = PF.random_attributes(PF.paper_schema(), n, seed=seed + 1)
+    fi = FavorIndex.build(vecs, attrs, HnswParams(M=8, efc=48, seed=3))
+    assert fi.device.type == "cuda"
+    pool = [PF.Equality("b0", True), PF.Range("f0", 10.0, 60.0),
+            PF.And(PF.Equality("i0", 3), PF.Range("f0", 10, 12))]
+    qs = rng.normal(size=(48, d)).astype(np.float32)
+    return fi, attrs, qs, [pool[i % 3] for i in range(len(qs))]
+
+
+def _same_bits(a_ids, a_d, b_ids, b_d) -> bool:
+    return (np.array_equal(a_ids, b_ids)
+            and np.array_equal(np.asarray(a_d, np.float32).view(np.uint32),
+                               np.asarray(b_d, np.float32).view(np.uint32)))
+
+
+@pytest.mark.cuda
+def test_engine_matches_query_on_card(dev):
+    """ServeEngine on the card (the default device) returns
+    ``FavorIndex.query``'s ids, distance bits, routes and p_hat for the
+    same batches, through the kernels, with obs on and off."""
+    from repro_torch.core import SearchOptions
+    from repro_torch.core.options import ObsSpec
+    from repro_torch.serving import ServeEngine
+    fi, _, qs, flts = _card_index()
+    opts = SearchOptions(k=10, ef=64)
+    for obs in (ObsSpec(enabled=False),
+                ObsSpec(trace_sample=1.0, probe_sample=1.0,
+                        shadow_sample=1.0, kernel_annotations=True)):
+        eng = ServeEngine(fi, opts, max_batch=16, max_wait_ms=0.0, obs=obs)
+        assert eng.stats["scorers"]["use_pallas"] is True
+        for i in range(len(qs)):
+            eng.submit(qs[i], flts[i])
+        K.reset_launch_counts()
+        out = eng.run()
+        assert K.launch_counts["filtered_topk"] > 0
+        assert K.launch_counts["gather_distance"] > 0
+        for lo in range(0, len(qs), 16):
+            res = fi.query(qs[lo:lo + 16], flts[lo:lo + 16], opts)
+            for i, r in enumerate(out[lo:lo + 16]):
+                assert _same_bits(r.ids, r.dists, res.ids[i], res.dists[i])
+                assert r.route == ("brute" if res.routed_brute[i]
+                                   else "graph")
+                assert r.p_hat == float(res.p_hat[i])
+        assert {r.route for r in out} == {"graph", "brute"}
+    from repro_torch.obs import profiling
+    profiling.set_kernel_annotations(False)
+
+
+@pytest.mark.cuda
+def test_deferred_finish_from_other_thread_on_card(dev):
+    """Two deferred batches on the card, finished in reverse order, one
+    from another thread: the synchronous results, bit for bit."""
+    import threading
+    from repro_torch.core import SearchOptions, router
+    fi, _, qs, flts = _card_index(seed=9)
+    opts = SearchOptions(k=10, ef=64)
+    halves = [(qs[:24], flts[:24]), (qs[24:], flts[24:])]
+    sync = [fi.query(q, f, opts) for q, f in halves]
+    pend = [router.execute(fi.backend, q, f, opts, defer=True)
+            for q, f in halves]
+    got = [None, None]
+
+    def finish():
+        got[0] = pend[0].finish()
+
+    t = threading.Thread(target=finish)
+    got[1] = pend[1].finish()
+    t.start()
+    t.join()
+    assert pend[0].finish() is got[0]
+    for g, s in zip(got, sync):
+        assert _same_bits(g.ids, g.dists, s.ids, s.dists)
+        assert np.array_equal(g.routed_brute, s.routed_brute)
+
+
+@pytest.mark.cuda
+def test_background_merge_on_card_equals_foreground(dev):
+    """A background merge (worker thread, gather_distance waves on the
+    card) while steps run: no deleted or replaced id ever returned, one
+    commit, and the merged engine serves what a foreground merge of the
+    same script serves, bit for bit."""
+    import time
+    from repro_torch.core import SearchOptions
+    from repro_torch.serving import ServeEngine
+    opts = SearchOptions(k=10, ef=64)
+    script = []
+    engines = []
+    for background in (True, False):
+        fi, attrs, qs, flts = _card_index(seed=13)
+        new = qs[:32] + 1e-3
+        eng = ServeEngine(fi, opts, max_batch=16, max_wait_ms=0.0,
+                          merge_background=background,
+                          merge_delta_frac=0.01 if background else None)
+        ids = np.concatenate([
+            eng.upsert(new[:24], attrs.ints[:24], attrs.floats[:24]),
+            eng.upsert(new[24:], attrs.ints[24:32], attrs.floats[24:32],
+                       replace=list(range(8)))])
+        assert eng.delete([int(ids[0]), 9, 10]) == 3
+        dead = list(range(8)) + [9, 10, int(ids[0])]
+        if background:
+            t0 = time.perf_counter()
+            while (eng._merge_ctl.merges == 0
+                   and time.perf_counter() - t0 < 120.0):
+                for i in range(16):
+                    eng.submit(qs[i], flts[i])
+                for r in eng.run():
+                    assert not np.isin(r.ids, dead).any()
+            assert eng._merge_ctl.merges == 1
+            eng.close()
+        else:
+            eng.merge(wave=512)
+        assert eng.stats["mutations"]["delta_rows"] == 0
+        for i in range(len(qs)):
+            eng.submit(qs[i], flts[i])
+        script.append(eng.run())
+        engines.append(eng)
+    for a, b in zip(*script, strict=True):
+        assert _same_bits(a.ids, a.dists, b.ids, b.dists)
+        assert not np.isin(a.ids, dead).any()

@@ -354,6 +354,13 @@ def test_merge_folds_to_equivalent_static_index(built, ds):
     dead_base = [int(np.nonzero(attrs.ints[:, col] == 3)[0][0])]
     dead_delta = [int(ids[5])]
     assert _both(pair, "delete", dead_base + dead_delta) == 2
+    # the graph route's waves before the merge, and after it below, are
+    # the JAX package's: a change of wave count across a merge is the
+    # merged graph's, not the port's
+    q0 = np.random.default_rng(62).normal(size=(8, 16)).astype(np.float32)
+    r, p = _run(pair, q0, "graph")
+    np.testing.assert_array_equal(p.waves, r.waves)
+    np.testing.assert_array_equal(p.ids, r.ids)
     out = _both(pair, "merge", wave=256)
     assert out["merged_slots"] == 40 and out["n"] == vecs.shape[0] + 40
     st = _both(pair, "live_stats")
@@ -373,6 +380,10 @@ def test_merge_folds_to_equivalent_static_index(built, ds):
     _assert_same(r, p, "brute")
     r, p = _run(pair, qs, "graph")
     _assert_same(r, p, "graph")
+    np.testing.assert_array_equal(p.waves, r.waves)
+    np.testing.assert_array_equal(p.hops, r.hops)
+    r0, p0 = _run(pair, q0, "graph")
+    np.testing.assert_array_equal(p0.waves, r0.waves)
     overlap = np.mean([len(set(p.ids[i][p.ids[i] >= 0]) & set(want[i])) / K
                        for i in range(len(qs))])
     assert overlap >= 0.9

@@ -200,9 +200,18 @@ def test_unported_options_raise():
     reg = ShapeRegistry()
     r = execute(fi.backend, vecs[:3], PF.TrueFilter(), opts, registry=reg)
     assert 0 not in r.ids and 65 not in r.ids and reg.compiled_shapes
-    # the serving slice's hooks still raise
-    for kw in ({"scopes": np.zeros(2)}, {"obs": object()}, {"defer": True}):
-        with pytest.raises(NotImplementedError, match="serving"):
-            execute(fi.backend, vecs[:2], PF.TrueFilter(), SearchOptions(),
+    # the serving hooks are ported: scopes (ignored by a backend that is
+    # not scope-aware), obs and defer run and return the same result
+    from repro_torch.core.options import ObsSpec
+    from repro_torch.core.router import PendingExecution
+    from repro_torch.obs import Obs
+    base = execute(fi.backend, vecs[:2], PF.TrueFilter(), SearchOptions())
+    for kw in ({"scopes": np.array([1, 2])},
+               {"obs": Obs(ObsSpec(trace_sample=1.0))}, {"defer": True}):
+        r = execute(fi.backend, vecs[:2], PF.TrueFilter(), SearchOptions(),
                     **kw)
+        if kw.get("defer"):
+            assert isinstance(r, PendingExecution)
+            r = r.finish()
+        assert np.array_equal(r.ids, base.ids)
 

@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s engine phase alone on the card.
+
+    python3 tools/engine_phase.py
+
+Builds the serve index as the smoke test's serve phase does (16,384 rows
+of the synthetic paper dataset, HNSW M=16 on the host, favor-anns' PQ
+``QuantSpec`` trained on the card), saves it to a temporary directory in
+the checkout and runs ``chip_smoke.phase_engine`` on it: the engine against
+``FavorIndex.query``, obs on against off, one profiled step, pipelined
+steps and the background merge, each printing its JSON line (with
+``FAVOR_TRACE_DIR`` set, the profiled step's trace is kept there as
+``engine_step_trace.json.gz``).  It skips the kernel, serve, live and
+widths phases, so an engine change is measured in a third of the smoke
+test's time.  Exits non-zero when a check fails.
+"""
+from __future__ import annotations
+
+import shutil
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch import kernels as Kn
+    from repro_torch.core import BuildSpec, FavorIndex, HnswParams, QuantSpec
+    from repro_torch.data import synthetic
+
+    if not torch.cuda.is_available():
+        print("engine_phase: no CUDA device available", file=sys.stderr)
+        return 2
+    cs.emit({"tool": "engine_phase", "nvidia_smi": cs.nvidia_smi_line()})
+    Kn.build_kernels()
+    vecs, attrs, _ = synthetic.make_paper_dataset(cs.SERVE_N, 128,
+                                                  seed=cs.SEED)
+    spec = BuildSpec(hnsw=HnswParams(M=16, efc=100, seed=cs.SEED),
+                     quant=QuantSpec(kind="pq", m=cs.PQ_M, nbits=cs.PQ_BITS,
+                                     rerank=cs.RERANK))
+    t0 = time.perf_counter()
+    fi = FavorIndex.build(vecs, attrs, spec=spec)
+    build_s = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-index-", dir=ROOT))
+    try:
+        fi.save(str(tmp / "serve"))
+        del fi
+        t0 = time.perf_counter()
+        launches = cs.phase_engine(torch.device("cuda"), tmp / "serve")
+        cs.emit({"tool": "engine_phase", "build_s": build_s,
+                 "engine_s": time.perf_counter() - t0,
+                 "engine_launches": launches})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
