@@ -68,10 +68,25 @@ no result):
            engine until its one commit (no deleted or replaced id served,
            the result equal to a foreground merge's; merge and commit-stall
            seconds, step times during the merge and without one, the merge
-           worker's launches).
+           worker's launches);
+  frontend the asyncio multi-tenant ``FrontEnd`` over a
+           ``CachingBackend(CacheSpec())``-wrapped engine on a fresh copy of
+           the serve index, favor-anns' batch, three tenants (weights 1 / 2
+           / 4, one rate-limited): a burst of 3 x 1024 requests sent cold,
+           then again (warm), under ``use_pq``, ``use_pq`` +
+           ``graph_quant="pq"`` and f32, each served response held to
+           ``FavorIndex.query`` bit for bit (candidate-block hits at 1e-5),
+           warm to cold, sheds never reaching the engine; two executor
+           slots against one; tenant isolation in ``by_scope``; the
+           front-end's own overhead on single requests; and the live
+           script through the warm f32 cache, held to an uncached engine.
+           Per pass: each layer's hit rate, request p50 / p99, QPS, the
+           pad fraction and each kernel's launches.
 
-Then a ``kernels`` line, the card's name and power limit as nvidia-smi
-reports them, and as the last line
+Then a ``kernels`` line (each kernel's ``frontend_launches`` over the
+frontend phase's cold and warm pass beside its other launch counts), the
+card's name and power limit as nvidia-smi reports them, and as the last
+line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -133,6 +148,12 @@ MERGE_BASELINE_STEPS = 6   # steps with the delta unmerged, no merge running
 MERGE_FRAC = 0.1       # merge_delta_frac: the live script's upserts are 12.5 %
 MERGE_TIMEOUT_S = 300.0    # the background merge must commit within this
 BUCKETS = dict(min_bucket=8, max_bucket=1024)
+# frontend phase: three tenants (weights), one of them rate-limited
+FE_TENANTS = {"bronze": 1.0, "silver": 2.0, "gold": 4.0}
+FE_LIMITED, FE_RATE_QPS, FE_BURST = "bronze", 64.0, 256
+FE_PER_TENANT = 1024   # the burst: 3 x 1024 requests
+FE_COALESCE_MS = 2.0   # the engine's max_wait_ms
+FE_PROBES = 16         # single requests timed for the front-end's overhead
 
 
 def emit(obj) -> None:
@@ -1703,6 +1724,436 @@ def engine_merge(saved: Path, qs, flts, opts) -> tuple:
     return part, serving
 
 
+def timed_frontend(eng, spec):
+    """A ``FrontEnd`` over ``eng`` that keeps the wall seconds of every
+    executor call of its engine (``serve_s``): the engine's step, which a
+    request's front-end latency less its step time leaves over."""
+    from repro_torch.serving import FrontEnd
+
+    class Timed(FrontEnd):
+        def _serve(self, batch):
+            t0 = time.perf_counter()
+            try:
+                return super()._serve(batch)
+            finally:
+                self.serve_s.append(time.perf_counter() - t0)
+
+    fe = Timed(eng, spec)
+    fe.serve_s = []
+    return fe
+
+
+def fe_traffic(fi):
+    """The frontend phase's burst: FE_PER_TENANT requests of each tenant,
+    interleaved, over the mixed filters (queries, filters, tenants)."""
+    from repro_torch.core import filters as F
+    from repro_torch.data import synthetic
+    n = len(FE_TENANTS) * FE_PER_TENANT
+    qs = synthetic.make_queries(n, fi.index.dim, dataset_seed=SEED, seed=400)
+    flts, _ = mixed_filters(F, fi.schema, n)
+    names = list(FE_TENANTS)
+    return qs, flts, [names[i % len(names)] for i in range(n)]
+
+
+def fe_reference(fi, qs, flts, opts):
+    """``FavorIndex.query`` over the burst in BATCH-row batches, as
+    (ids, dists, routed_brute, p_hat) host arrays."""
+    import numpy as np
+    parts = [fi.query(qs[lo:lo + BATCH], flts[lo:lo + BATCH], opts)
+             for lo in range(0, len(qs), BATCH)]
+    return tuple(np.concatenate([getattr(r, k) for r in parts])
+                 for k in ("ids", "dists", "routed_brute", "p_hat"))
+
+
+async def fe_send(fe, qs, flts, tenants):
+    """Submit the whole burst at once; returns each request's Response or
+    its ``Overloaded``, and the wall seconds.  Any other exception
+    fails the phase."""
+    import asyncio
+
+    from repro_torch.serving import Overloaded
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*[fe.submit(qs[i], flts[i], tenant=tenants[i])
+                                  for i in range(len(qs))],
+                                return_exceptions=True)
+    wall = time.perf_counter() - t0
+    for o in outs:
+        if isinstance(o, BaseException) and not isinstance(o, Overloaded):
+            raise o
+    return outs, wall
+
+
+def fe_hold(outs, ref, label: str) -> int:
+    """Hold each served response to ``ref`` (ids, dists, routed_brute,
+    p_hat; None rows skipped): routes and p_hat bit for bit, ids and
+    distances bit for bit except on brute rows, which may come from a
+    candidate block (the host's exact f32 scan): ids equal where distances
+    are distinct, distances within RTOL / ATOL.  Returns how many rows took
+    that exception."""
+    import numpy as np
+
+    from repro_torch.parity import topk_mismatch
+    from repro_torch.serving import Overloaded
+    ids, dists, brute, p_hat = ref
+    inexact = 0
+    for i, o in enumerate(outs):
+        if isinstance(o, Overloaded) or ids[i] is None:
+            continue
+        check(o.route == ("brute" if brute[i] else "graph")
+              and np.float32(o.p_hat).view(np.uint32)
+              == np.float32(p_hat[i]).view(np.uint32),
+              f"{label}: request {i}: route and p_hat bit for bit")
+        if np.array_equal(o.ids, ids[i]) and np.array_equal(
+                o.dists.view(np.uint32),
+                np.asarray(dists[i], np.float32).view(np.uint32)):
+            continue
+        mm = topk_mismatch(ids[i][None], dists[i][None], o.ids[None],
+                           o.dists[None], rtol=RTOL, atol=ATOL)
+        check(o.route == "brute" and mm["dist_mismatch"] == 0
+              and mm["id_mismatch"] == 0,
+              f"{label}: request {i} ({o.route}) differs: {mm}")
+        inexact += 1
+    return inexact
+
+
+def fe_rows(outs):
+    """``outs`` as a reference: (ids, dists, routed_brute, p_hat) lists with
+    None where the request was shed."""
+    from repro_torch.serving import Overloaded
+    keep = [None if isinstance(o, Overloaded) else o for o in outs]
+    return ([None if o is None else o.ids for o in keep],
+            [None if o is None else o.dists for o in keep],
+            [None if o is None else o.route == "brute" for o in keep],
+            [None if o is None else o.p_hat for o in keep])
+
+
+def fe_summary(fe, outs, wall: float, launches: dict, tenants) -> dict:
+    """One pass's numbers off the front-end's stats (reset before the
+    pass): served / shed, request p50 / p99 and QPS, the front-end's own
+    seconds (the pass's wall time less its engine steps, with one executor
+    slot; with more, the steps' overlap: their sum less the wall), each
+    cache layer's hit rate, the dispatches' mean batch and the router's
+    pad fraction, the launches of each kernel."""
+    import numpy as np
+
+    from repro_torch.serving import Overloaded
+    st = fe.stats
+    served = [o for o in outs if not isinstance(o, Overloaded)]
+    shed = [t for o, t in zip(outs, tenants) if isinstance(o, Overloaded)]
+    check(all(o.reason == "rate_limit" for o in outs
+              if isinstance(o, Overloaded))
+          and set(shed) <= {FE_LIMITED},
+          f"only {FE_LIMITED} sheds, on its rate limit")
+    eng = st["engine"]
+    check(eng["graph"] + eng["brute"] == len(served)
+          == sum(t["served"] for t in st["tenants"].values()),
+          f"shed requests never reach the engine: {eng['graph']} + "
+          f"{eng['brute']} engine rows, {len(served)} served")
+    lat = np.array([o.latency_s for o in served]) * 1e3
+    cache = eng["cache"]
+    steps = list(fe.serve_s)
+    return {
+        "requests": len(outs), "served": len(served), "shed": len(shed),
+        "wall_s": wall, "qps": len(served) / wall,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "dispatches": st["coalesce"]["dispatches"],
+        "mean_batch": st["coalesce"]["mean_batch"],
+        "engine_step_s": steps,
+        **({"frontend_s": wall - sum(steps)} if fe.spec.parallel_steps == 1
+           else {"steps_overlap_s": sum(steps) - wall}),
+        "pad_overhead": eng["batching"]["pad_overhead"],
+        "graph": eng["graph"], "brute": eng["brute"],
+        "hit_rate": {k: cache[k]["hit_rate"]
+                     for k in ("selectivity", "candidates", "semantic")},
+        "hits": {k: cache[k]["hits"]
+                 for k in ("selectivity", "candidates", "semantic")},
+        "misses": {k: cache[k]["misses"]
+                   for k in ("selectivity", "candidates", "semantic")},
+        "candidate_bypasses": cache["candidates"]["bypasses"],
+        "candidates_composed": cache["candidates"]["composed"],
+        "launches": launches,
+        "tenants": {t: {k: v.get(k) for k in ("served", "shed_total",
+                                              "p50_ms", "p99_ms")}
+                    for t, v in st["tenants"].items()}}
+
+
+def fe_stack(fi, opts, **spec_kw):
+    """A fresh ``CachingBackend(CacheSpec())`` over ``fi``'s backend, a
+    ``ServeEngine`` at favor-anns' batch and a timed ``FrontEnd`` with the
+    phase's three tenants."""
+    from repro_torch.cache import CachingBackend
+    from repro_torch.configs.favor_anns import FavorServeConfig
+    from repro_torch.core import CacheSpec, FrontEndSpec, TenantSpec
+    from repro_torch.serving import ServeEngine
+    cb = CachingBackend(fi.backend, CacheSpec())
+    eng = ServeEngine(cb, opts, max_batch=FavorServeConfig.batch,
+                      max_wait_ms=FE_COALESCE_MS)
+    check(eng.stats["scorers"]["use_pallas"] is True
+          and cb.device.type == "cuda",
+          "the cached engine's routes run on the card")
+    tenants = {t: TenantSpec(weight=w) for t, w in FE_TENANTS.items()}
+    tenants[FE_LIMITED] = tenants[FE_LIMITED].with_(rate_qps=FE_RATE_QPS,
+                                                     burst=FE_BURST)
+    spec = FrontEndSpec(coalesce_ms=FE_COALESCE_MS, tenants=tenants,
+                        **spec_kw)
+    return cb, eng, timed_frontend(eng, spec)
+
+
+async def fe_passes(fe, traffic) -> dict:
+    """The cold pass and the warm pass of the burst, the counters and the
+    launch counts zeroed before each and read after it."""
+    import torch
+
+    from repro_torch import kernels as Kn
+    out = {}
+    for name in ("cold", "warm"):
+        fe.reset_stats()
+        fe.serve_s.clear()
+        torch.cuda.synchronize()
+        Kn.reset_launch_counts()
+        outs, wall = await fe_send(fe, *traffic)
+        out[name] = (outs, fe_summary(fe, outs, wall, dict(Kn.launch_counts),
+                                      traffic[2]))
+    return out
+
+
+def phase_frontend(dev, saved: Path) -> dict:
+    """The asyncio multi-tenant ``FrontEnd`` over a ``CachingBackend``-
+    wrapped engine on a fresh copy of the serve index, at favor-anns' batch:
+
+      1. three option sets -- favor-anns' ``use_pq`` (the candidate layer
+         bypasses), f32 (it admits and serves) and ``use_pq`` +
+         ``graph_quant="pq"`` -- each with its own cache, engine and
+         front-end, bucketed (``BUCKETS``): a burst of FE_TENANTS x
+         FE_PER_TENANT requests sent cold, then again unchanged (warm).
+         Every served response equals ``FavorIndex.query``'s for the same
+         (query, filter) pair, bit for bit (brute rows served from a
+         candidate block: ids where distances are distinct, distances
+         within RTOL / ATOL); warm equals cold; only the rate-limited
+         tenant sheds, and shed requests never reach the engine;
+      2. ``parallel_steps=2`` (a fresh cache) returns the one-slot cold
+         pass's bits;
+      3. isolation: a pair sent by one tenant twice, then by another,
+         counts a hit for the first and a miss for the second;
+      4. the front-end's own overhead: FE_PROBES single requests, each
+         latency less its engine step;
+      5. with the f32 cache warm, the live script's upserts and deletes
+         through the engine: no deleted or replaced id comes back, the
+         results equal an uncached engine's after the same mutations, the
+         cache counted one invalidation and its selectivity and candidate
+         layers stayed warm (candidate hits composed with the live rows).
+    Returns each kernel's launches over the cold and the warm pass of the
+    option set that runs it."""
+    import asyncio
+
+    from repro_torch.configs.favor_anns import FavorServeConfig
+    from repro_torch.core import BatchSpec
+
+    fi = load_serve(saved)
+    cfg = FavorServeConfig()
+    traffic = fe_traffic(fi)
+    qs, flts, _ = traffic
+    # f32 last: its live part mutates the index
+    opts = {"use_pq": cfg.search_options(batch=BatchSpec(**BUCKETS))}
+    opts["use_pq+graph_pq"] = opts["use_pq"].with_(graph_quant="pq")
+    opts["f32"] = opts["use_pq"].with_(use_pq=False)
+    need = {"use_pq": ("pq_adc_topr", "gather_distance"),
+            "f32": ("filtered_topk", "gather_distance"),
+            "use_pq+graph_pq": ("pq_adc_topr", "pq_adc_gather")}
+    head = {"phase": "frontend", "n": fi.index.n, "d": fi.index.dim,
+            "max_batch": cfg.batch, "tenants": FE_TENANTS,
+            "rate_limited": {FE_LIMITED: {"rate_qps": FE_RATE_QPS,
+                                          "burst": FE_BURST}},
+            "per_tenant": FE_PER_TENANT, "coalesce_ms": FE_COALESCE_MS,
+            "buckets": BUCKETS}
+    emit(dict(head, part="setup"))
+    launches = {}
+    for label, o in opts.items():
+        ref = fe_reference(fi, qs, flts, o)
+        cb, eng, fe = fe_stack(fi, o)
+
+        async def run():
+            passes = await fe_passes(fe, traffic)
+            extra = {}
+            if label == "use_pq":
+                extra["isolation"] = await fe_isolation(fe, cb, qs, flts)
+                extra["overhead"] = await fe_overhead(fe, fi)
+            if label == "f32":
+                extra["live"] = await fe_live(fe, eng, cb, fi, saved,
+                                              traffic, o)
+            await fe.close()
+            return passes, extra
+
+        passes, extra = asyncio.run(run())
+        (cold, cold_line), (warm, warm_line) = passes["cold"], passes["warm"]
+        exact = label != "f32"
+        cold_line["inexact_rows"] = fe_hold(cold, ref, f"{label} cold")
+        warm_line["inexact_rows"] = fe_hold(warm, fe_rows(cold),
+                                            f"{label} warm vs cold")
+        for line in (cold_line, warm_line):
+            check(line["inexact_rows"] <= line["hits"]["candidates"]
+                  and (not exact or line["inexact_rows"] == 0),
+                  f"{label}: only candidate-block hits may differ in the "
+                  f"last bits: {line['inexact_rows']} rows, "
+                  f"{line['hits']['candidates']} hits")
+        for kname in need[label]:
+            check(cold_line["launches"][kname] > 0,
+                  f"frontend {label}: {kname} launched on the cold pass: "
+                  f"{cold_line['launches']}")
+        check(warm_line["hits"]["semantic"] > 0
+              and warm_line["misses"]["selectivity"] == 0,
+              f"{label}: the warm pass hit the semantic layer, and the "
+              f"selectivity layer on every semantic miss: "
+              f"{warm_line['hits']}, {warm_line['misses']}")
+        if label == "f32":
+            check(warm_line["hits"]["candidates"] > 0,
+                  "f32: the candidate layer served the warm brute rows")
+        else:
+            check(warm_line["hits"]["candidates"] == 0
+                  and cold_line["candidate_bypasses"] > 0,
+                  f"{label}: the compressed scan bypasses the candidate "
+                  "layer")
+        launches[label] = {"cold": cold_line["launches"],
+                           "warm": warm_line["launches"]}
+        emit(dict(head, part=label, options={
+            k: v for k, v in vars(o).items() if v is not None and k != "batch"},
+            cold=cold_line, warm=warm_line, **extra))
+        if label == "use_pq":
+            emit(dict(head, part="parallel_steps",
+                      **fe_parallel(fi, o, traffic, cold)))
+    return {"pq_adc_topr": launches["use_pq"],
+            "gather_distance": launches["f32"],
+            "filtered_topk": launches["f32"],
+            "pq_adc_gather": launches["use_pq+graph_pq"]}
+
+
+def fe_parallel(fi, opts, traffic, one) -> dict:
+    """The cold pass again through ``parallel_steps=2`` (a fresh cache):
+    the one-slot cold pass's bits, request for request."""
+    import asyncio
+
+    cb, eng, fe = fe_stack(fi, opts, parallel_steps=2)
+
+    async def run():
+        fe.reset_stats()
+        outs, wall = await fe_send(fe, *traffic)
+        line = fe_summary(fe, outs, wall, {}, traffic[2])
+        await fe.close()
+        return outs, line
+
+    outs, line = asyncio.run(run())
+    check(fe_hold(outs, fe_rows(one), "parallel_steps=2 vs 1") == 0,
+          "parallel_steps=2: the one-slot cold pass's bits")
+    return {"slots": 2, "cold": line}
+
+
+async def fe_isolation(fe, cb, qs, flts) -> dict:
+    """A fresh pair sent by the heaviest tenant twice, then by another: a
+    miss and a hit for the first, a miss for the second (``by_scope``), and
+    the same bits for all three."""
+    import numpy as np
+
+    from repro_torch.data import synthetic
+    a, b = "gold", "silver"
+    q = synthetic.make_queries(1, qs.shape[1], dataset_seed=SEED, seed=401)[0]
+    sa, sb = cb.scope_id(a), cb.scope_id(b)
+
+    def counts():
+        by = cb.cache_stats()["semantic"]["by_scope"]
+        return {s: (by.get(s, {}).get("hits", 0),
+                    by.get(s, {}).get("misses", 0)) for s in (sa, sb)}
+
+    c0 = counts()
+    r = [await fe.submit(q, flts[0], tenant=t) for t in (a, a, b)]
+    c1 = counts()
+    delta = {t: (c1[s][0] - c0[s][0], c1[s][1] - c0[s][1])
+             for t, s in ((a, sa), (b, sb))}
+    check(delta == {a: (1, 1), b: (0, 1)},
+          f"isolation: {a} miss then hit, {b} a miss: {delta}")
+    check(all(np.array_equal(x.ids, r[0].ids) and np.array_equal(
+        x.dists.view(np.uint32), r[0].dists.view(np.uint32)) for x in r),
+          "isolation never changes the result")
+    return {"scopes": {a: sa, b: sb}, "hits_misses": delta}
+
+
+async def fe_overhead(fe, fi) -> dict:
+    """FE_PROBES single requests, one at a time (fresh queries, a mixed
+    filter each): each one's front-end latency less its engine step."""
+    import numpy as np
+
+    from repro_torch.core import filters as F
+    from repro_torch.data import synthetic
+    qs = synthetic.make_queries(FE_PROBES, fi.index.dim, dataset_seed=SEED,
+                                seed=402)
+    flts, _ = mixed_filters(F, fi.schema, FE_PROBES)
+    over, lat = [], []
+    for i in range(FE_PROBES):
+        n0 = len(fe.serve_s)
+        r = await fe.submit(qs[i], flts[i], tenant="silver")
+        check(len(fe.serve_s) == n0 + 1, "one engine step per probe")
+        lat.append(1e3 * r.latency_s)
+        over.append(1e3 * (r.latency_s - fe.serve_s[-1]))
+    return {"probes": FE_PROBES, "latency_ms": lat, "overhead_ms": over,
+            "overhead_ms_median": float(np.median(over)),
+            "step_ms_median": float(np.median(np.array(lat)
+                                              - np.array(over)))}
+
+
+async def fe_live(fe, eng, cb, fi, saved: Path, traffic, opts) -> dict:
+    """The live script through the cached f32 engine with its cache warm,
+    then the burst again; held to an uncached engine over a fresh copy of
+    the index after the same mutations."""
+    import numpy as np
+
+    from repro_torch.configs.favor_anns import FavorServeConfig
+    from repro_torch.serving import Overloaded, ServeEngine
+    qs, flts, tenants = traffic
+    script = live_script(fi.index.n, fi.index.dim, fi.schema)
+    dead = script["dead"]
+    sizes = {k: cb.cache_stats()[k]["size"]
+             for k in ("selectivity", "candidates")}
+    fe.reset_stats()
+    fe.serve_s.clear()
+    t0 = time.perf_counter()
+    apply_live_script(eng, script)
+    mutate_s = time.perf_counter() - t0
+    outs, wall = await fe_send(fe, qs, flts, tenants)
+    line = fe_summary(fe, outs, wall, {}, tenants)
+    st = cb.cache_stats()
+    check(st["invalidations"] == 1,
+          f"the mutations invalidated the cache once: {st['invalidations']}")
+    check(st["selectivity"]["misses"] == 0 and st["selectivity"]["size"]
+          == sizes["selectivity"],
+          f"a vectors-only bump leaves the selectivity layer warm: "
+          f"{st['selectivity']}")
+    check(st["candidates"]["hits"] > 0 and st["candidates"]["composed"] > 0
+          and st["candidates"]["size"] >= sizes["candidates"],
+          f"a vectors-only bump leaves the candidate layer warm (hits "
+          f"composed with the live rows): {st['candidates']}")
+    served = [i for i, o in enumerate(outs) if not isinstance(o, Overloaded)]
+    check(not any(np.isin(outs[i].ids, dead).any() for i in served),
+          "live: a deleted or replaced id came back")
+    fg = load_serve(saved)
+    apply_live_script(fg, script)
+    plain = ServeEngine(fg, opts, max_batch=FavorServeConfig.batch)
+    for i in served:
+        plain.submit(qs[i], flts[i])
+    ref_out = plain.run()
+    ref = tuple([None] * len(outs) for _ in range(4))
+    for i, r in zip(served, ref_out, strict=True):
+        ref[0][i], ref[1][i] = r.ids, r.dists
+        ref[2][i], ref[3][i] = r.route == "brute", r.p_hat
+    inexact = fe_hold(outs, ref, "live vs uncached")
+    check(inexact <= line["hits"]["candidates"],
+          f"live: only candidate-block hits differ in the last bits "
+          f"({inexact} rows)")
+    line.update(mutate_s=mutate_s, inexact_rows=inexact,
+                invalidations=st["invalidations"],
+                upserts=LIVE_UPSERT, replaced=LIVE_REPLACE,
+                deletes=LIVE_DELETE)
+    return line
+
 def phase_widths(rates, kernels, gathers, widths, top: int = 3) -> None:
     """Both gather kernels at every (B, M) width the serve phase launched
     them at, on the kernel phase's rows and the first B queries and M ids
@@ -1832,6 +2283,7 @@ def main() -> int:
         del gathers
         torch.cuda.empty_cache()
         engine_launches = phase_engine(dev, saved)
+        frontend_launches = phase_frontend(dev, saved)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on the pass of the main path that runs it, and
@@ -1841,6 +2293,8 @@ def main() -> int:
     for kname, pass_ in main_pass.items():
         kernels[kname]["launches"] = launches[pass_][kname]
         kernels[kname]["engine_launches"] = engine_launches[kname]
+        kernels[kname]["frontend_launches"] = {
+            p: frontend_launches[kname][p][kname] for p in ("cold", "warm")}
     emit({"kernels": [{k: v for k, v in row.items() if k != "shape"}
                       for row in kernels.values()]})
     print(smi, flush=True)

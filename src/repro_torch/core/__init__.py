@@ -10,24 +10,24 @@ from .filters import (And, AttributeTable, ColumnSpec, Equality, FalseFilter,
                       paper_filters, paper_schema, program_signature,
                       random_attributes, stack_programs)
 from .hnsw import HnswIndex, HnswParams, build_hnsw
-from .options import BuildSpec, QuantSpec, SearchOptions
+from .options import (BuildSpec, CacheSpec, FrontEndSpec, ObsSpec, QuantSpec,
+                      SearchOptions, TenantSpec)
 from .router import RoutePlan, SearchResult
 from .scoring import ExactScorer, PqAdcScorer, SqScorer, scorer_for
 from .search import (SearchConfig, favor_graph_search, graph_arrays,
                      rsf_graph_search)
 
 __all__ = [
-    "And", "AttributeTable", "BatchSpec", "BuildSpec", "ColumnSpec",
-    "Equality",
-    "ExactScorer", "FalseFilter", "Filter", "FavorIndex", "HnswIndex",
-    "HnswParams", "Inclusion", "LocalBackend", "Not", "Or", "PqAdcScorer",
-    "QuantSpec",
+    "And", "AttributeTable", "BatchSpec", "BuildSpec", "CacheSpec",
+    "ColumnSpec", "Equality", "ExactScorer", "FalseFilter", "Filter",
+    "FavorIndex", "FrontEndSpec", "HnswIndex", "HnswParams", "Inclusion",
+    "LocalBackend", "Not", "ObsSpec", "Or", "PqAdcScorer", "QuantSpec",
     "Range", "RoutePlan", "Schema", "SearchConfig", "SearchOptions",
-    "SearchResult", "ShapeRegistry", "TrueFilter", "batching",
-    "batch_signatures", "build_hnsw",
+    "SearchResult", "ShapeRegistry", "SqScorer", "TenantSpec",
+    "TrueFilter", "batching", "batch_signatures", "build_hnsw",
     "compile_filter", "exclusion", "favor_graph_search",
     "filter_signature", "filters", "graph_arrays", "paper_filters",
     "paper_schema", "prefbf", "program_signature", "random_attributes",
     "refimpl", "resolve_device", "router", "rsf_graph_search",
-    "scorer_for", "selectivity", "selector", "SqScorer", "stack_programs",
+    "scorer_for", "selectivity", "selector", "stack_programs",
 ]

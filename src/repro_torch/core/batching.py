@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import filters as F
+from ..device import to_host
 
 PAD_POLICIES = ("zero", "repeat")
 
@@ -269,15 +270,15 @@ def warmup(backend, opts, *, buckets=None, registry=None) -> tuple[int, ...]:
         progs = {k: torch.as_tensor(v, device=dev) for k, v in stacked.items()}
         valid = np.zeros((b,), bool)
         record(registry, "estimate", b, 0)
-        backend.estimate(progs, valid=valid).cpu()
+        to_host(backend.estimate(progs, valid=valid))
         if opts.force != "brute":
             record(registry, "graph", b, 0, opts)
             out = backend.search_graph(queries, progs, np.zeros((b,),
                                                                 np.float32),
                                        opts, valid=valid)
-            out["ids"].cpu()
+            to_host(out["ids"])
         if opts.force != "graph":
             record(registry, "brute", b, 0, opts)
             bid, _ = backend.search_brute(queries, progs, opts, valid=valid)
-            bid.cpu()
+            to_host(bid)
     return bucket_list

@@ -35,6 +35,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import to_host
+
 INT_KINDS = ("bool", "int")
 MAX_INT_VOCAB = 32
 
@@ -452,11 +454,10 @@ def filter_signature(f: Filter, schema: Schema, width: int = 8) -> str:
 
 
 def batch_signatures(programs: dict) -> list[str]:
-    """Per-query signatures of a stacked (B, W, ...) program dict."""
-    valid = np.asarray(programs["valid"])
-    imask = np.asarray(programs["imask"])
-    flo = np.asarray(programs["flo"])
-    fhi = np.asarray(programs["fhi"])
+    """Per-query signatures of a stacked (B, W, ...) program dict of numpy
+    arrays or tensors on any device (read through ``to_host``)."""
+    valid, imask, flo, fhi = (to_host(programs[k])
+                              for k in ("valid", "imask", "flo", "fhi"))
     return [program_signature({"valid": valid[b], "imask": imask[b],
                                "flo": flo[b], "fhi": fhi[b]})
             for b in range(valid.shape[0])]

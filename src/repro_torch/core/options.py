@@ -5,9 +5,12 @@
                    scan chunking, optional QuantSpec
   SearchOptions -- per-query-batch online knobs (k/ef, routing force,
                    termination)
+  CacheSpec     -- the serving cache layers (repro_torch.cache)
+  TenantSpec    -- one tenant's QoS contract under the async front-end
+  FrontEndSpec  -- the async front-end's policy (repro_torch.serving.frontend)
   ObsSpec       -- observability policy of one serving stack (repro_torch.obs)
 
-All three validate eagerly in ``__post_init__``.
+All of them validate eagerly in ``__post_init__``.
 """
 from __future__ import annotations
 
@@ -66,6 +69,173 @@ class BuildSpec:
         if self.hnsw is not None and not isinstance(self.hnsw, HnswParams):
             raise TypeError("BuildSpec.hnsw must be HnswParams or None, "
                             f"got {type(self.hnsw).__name__}")
+
+
+@dataclass(frozen=True)
+class CacheSpec:
+    """Serving-side cache configuration (``repro_torch.cache``).
+
+    Three layers, all keyed by the canonical filter signature
+    (``filters.filter_signature``) and all LRU+TTL bounded:
+
+      selectivity -- signature -> p_hat; skips ``backend.estimate`` for
+                     repeat filters.  Exact: the estimator is deterministic
+                     over the fixed sample, so a hit returns the same value.
+      candidates  -- signature -> matching-ID set for hot *low-selectivity*
+                     filters; repeat brute routes scan only the cached block
+                     instead of the full corpus.  Exact: the ID set is the
+                     predicate's true extension.
+      semantic    -- (query vector, signature, opts) -> top-k, redisvl-style.
+                     ``semantic_threshold`` is the max L2 distance between
+                     the incoming and cached query vector for a hit; the
+                     default 0.0 serves only exact repeats and is therefore
+                     lossless, larger values trade recall for QPS.
+
+    ``ttl_s=None`` disables time-based expiry (epoch invalidation via
+    ``Backend.version()`` still applies).  ``candidate_p_max`` gates which
+    signatures get an ID set (only filters that route brute benefit);
+    ``candidate_max_ids`` bounds one entry's memory.
+    """
+    selectivity: bool = True
+    candidates: bool = True
+    semantic: bool = True
+    selectivity_cap: int = 4096
+    candidate_cap: int = 64
+    candidate_p_max: float = 0.02
+    candidate_max_ids: int = 262144
+    semantic_cap: int = 1024
+    semantic_per_key: int = 32
+    semantic_threshold: float = 0.0
+    ttl_s: float | None = None
+
+    def __post_init__(self):
+        for name in ("selectivity_cap", "candidate_cap", "semantic_cap",
+                     "semantic_per_key", "candidate_max_ids"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"CacheSpec.{name} must be >= 1, "
+                                 f"got {getattr(self, name)}")
+        if not 0.0 <= self.candidate_p_max <= 1.0:
+            raise ValueError("CacheSpec.candidate_p_max must be in [0, 1], "
+                             f"got {self.candidate_p_max}")
+        if self.semantic_threshold < 0.0:
+            raise ValueError("CacheSpec.semantic_threshold must be >= 0, "
+                             f"got {self.semantic_threshold}")
+        if self.ttl_s is not None and self.ttl_s <= 0:
+            raise ValueError(f"CacheSpec.ttl_s must be None or > 0, "
+                             f"got {self.ttl_s}")
+
+    def with_(self, **overrides) -> "CacheSpec":
+        return replace(self, **overrides)
+
+
+@dataclass(frozen=True)
+class TenantSpec:
+    """Per-tenant QoS contract for the async serving front-end
+    (``repro_torch.serving.frontend``).
+
+    ``weight`` sets the tenant's share under weighted fair dequeue (2.0 gets
+    twice the dequeue rate of 1.0 under contention).  ``rate_qps``/``burst``
+    parameterize the admission token bucket (None disables rate limiting);
+    ``queue_cap`` bounds the tenant's pending queue (overflow is shed with a
+    structured ``Overloaded``); ``deadline_ms`` is the default per-request
+    deadline (requests still queued past it are shed, never served late).
+    """
+    weight: float = 1.0
+    rate_qps: float | None = None
+    burst: int = 16
+    queue_cap: int = 1024
+    deadline_ms: float | None = None
+
+    def __post_init__(self):
+        if not self.weight > 0.0:
+            raise ValueError(f"TenantSpec.weight must be > 0, "
+                             f"got {self.weight}")
+        if self.rate_qps is not None and not self.rate_qps > 0.0:
+            raise ValueError(f"TenantSpec.rate_qps must be None or > 0, "
+                             f"got {self.rate_qps}")
+        if self.burst < 1:
+            raise ValueError(f"TenantSpec.burst must be >= 1, "
+                             f"got {self.burst}")
+        if self.queue_cap < 1:
+            raise ValueError(f"TenantSpec.queue_cap must be >= 1, "
+                             f"got {self.queue_cap}")
+        if self.deadline_ms is not None and not self.deadline_ms > 0.0:
+            raise ValueError(f"TenantSpec.deadline_ms must be None or > 0, "
+                             f"got {self.deadline_ms}")
+
+    def with_(self, **overrides) -> "TenantSpec":
+        return replace(self, **overrides)
+
+
+@dataclass(frozen=True)
+class FrontEndSpec:
+    """Policy for one logical async front-end over a ServeEngine.
+
+    ``coalesce_ms`` is the cross-step batch-coalescing window: an
+    under-filled batch is held up to this long for more arrivals before it
+    is dispatched, so low arrival rates stop paying bucket-pad overhead
+    (0.0 dispatches immediately -- the uncoalesced baseline).
+    ``coalesce_target`` is the fill level (rows) that releases a held batch
+    early; None targets the dispatch cap.  ``max_batch`` caps one dispatch
+    (None defers to the engine's ``max_batch``).  ``admission=False``
+    disables the token buckets *and* the queue caps (pure unbounded FIFO --
+    the no-QoS baseline); ``fair=False`` replaces weighted fair dequeue
+    with global FIFO order.  ``tenants`` maps tenant name -> TenantSpec
+    (accepted as a dict, stored canonically as a sorted tuple of pairs);
+    unknown tenants fall back to ``default_tenant``.
+    """
+    coalesce_ms: float = 0.0
+    coalesce_target: int | None = None
+    max_batch: int | None = None
+    admission: bool = True
+    fair: bool = True
+    default_tenant: TenantSpec = field(default_factory=TenantSpec)
+    tenants: tuple = ()
+    latency_window: int = 4096
+    # executor slots for pipelined step dispatch: N > 1 lets the front-end
+    # overlap one step's device wait with the next step's host phase
+    # (routing/cache), riding the card's asynchronous launches.  Responses
+    # still resolve in dispatch order; 1 = the serialized baseline.
+    parallel_steps: int = 1
+
+    def __post_init__(self):
+        if self.coalesce_ms < 0.0:
+            raise ValueError(f"FrontEndSpec.coalesce_ms must be >= 0, "
+                             f"got {self.coalesce_ms}")
+        if self.parallel_steps < 1:
+            raise ValueError(f"FrontEndSpec.parallel_steps must be >= 1, "
+                             f"got {self.parallel_steps}")
+        for name in ("coalesce_target", "max_batch"):
+            v = getattr(self, name)
+            if v is not None and v < 1:
+                raise ValueError(f"FrontEndSpec.{name} must be None or >= 1, "
+                                 f"got {v}")
+        if self.latency_window < 1:
+            raise ValueError(f"FrontEndSpec.latency_window must be >= 1, "
+                             f"got {self.latency_window}")
+        if not isinstance(self.default_tenant, TenantSpec):
+            raise TypeError("FrontEndSpec.default_tenant must be a "
+                            f"TenantSpec, got {self.default_tenant!r}")
+        tenants = self.tenants
+        if isinstance(tenants, dict):
+            tenants = tuple(sorted(tenants.items()))
+            object.__setattr__(self, "tenants", tenants)
+        for pair in tenants:
+            if (not isinstance(pair, tuple) or len(pair) != 2
+                    or not isinstance(pair[0], str)
+                    or not isinstance(pair[1], TenantSpec)):
+                raise TypeError("FrontEndSpec.tenants must map tenant name "
+                                f"-> TenantSpec, got {pair!r}")
+
+    def tenant(self, name: str) -> TenantSpec:
+        """The spec configured for ``name`` (``default_tenant`` otherwise)."""
+        for n, spec in self.tenants:
+            if n == name:
+                return spec
+        return self.default_tenant
+
+    def with_(self, **overrides) -> "FrontEndSpec":
+        return replace(self, **overrides)
 
 
 @dataclass(frozen=True)

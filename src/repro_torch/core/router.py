@@ -142,8 +142,7 @@ class PendingExecution:
                 self.obs.finish_trace(
                     self.tr, p_hat=self.p_hat,
                     routed_brute=self.routed_brute, ef=self.opts.ef,
-                    signatures=lambda: F.batch_signatures(
-                        {k: _host(v) for k, v in programs.items()}))
+                    signatures=lambda: F.batch_signatures(programs))
         return SearchResult(
             ids, dists, self.p_hat, self.routed_brute,
             self.hops if self.graph_diag else None,

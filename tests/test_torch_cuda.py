@@ -840,12 +840,15 @@ def test_bucketing_and_live_index_on_card(dev):
         assert (own.ids[:, 0] == ids[1:]).all(), force
 
 
-def _card_index(seed=5, n=2000, d=16):
-    from repro_torch.core import FavorIndex, HnswParams
+def _card_index(seed=5, n=2000, d=16, quant=False):
+    from repro_torch.core import BuildSpec, FavorIndex, HnswParams, QuantSpec
     rng = np.random.default_rng(seed)
     vecs = rng.normal(size=(n, d)).astype(np.float32)
     attrs = PF.random_attributes(PF.paper_schema(), n, seed=seed + 1)
-    fi = FavorIndex.build(vecs, attrs, HnswParams(M=8, efc=48, seed=3))
+    spec = (BuildSpec(quant=QuantSpec(kind="pq", m=4, nbits=8,
+                                      train_iters=5)) if quant else None)
+    fi = FavorIndex.build(vecs, attrs, HnswParams(M=8, efc=48, seed=3),
+                          spec)
     assert fi.device.type == "cuda"
     pool = [PF.Equality("b0", True), PF.Range("f0", 10.0, 60.0),
             PF.And(PF.Equality("i0", 3), PF.Range("f0", 10, 12))]
@@ -963,3 +966,128 @@ def test_background_merge_on_card_equals_foreground(dev):
     for a, b in zip(*script, strict=True):
         assert _same_bits(a.ids, a.dists, b.ids, b.dists)
         assert not np.isin(a.ids, dead).any()
+
+
+@pytest.mark.cuda
+def test_batch_signatures_read_device_tensors(dev):
+    """The router's program tensors on the card give the numpy programs'
+    signatures (read through ``to_host``)."""
+    schema = PF.paper_schema()
+    flts = list(PF.paper_filters(schema).values())
+    progs = compile_programs(flts, schema, len(flts), device=dev)
+    assert progs["valid"].is_cuda
+    stacked = PF.stack_programs([PF.compile_filter(f, schema) for f in flts])
+    assert PF.batch_signatures(progs) == PF.batch_signatures(stacked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pq", [False, True])
+def test_caching_backend_on_card(dev, use_pq):
+    """CachingBackend over a CUDA LocalBackend.  The cold pass equals the
+    uncached backend bit for bit (the miss sub-batches go back to the card:
+    ``filtered_topk``, or ``pq_adc_topr`` under ``use_pq``); the warm pass
+    is all semantic hits, launches nothing and returns the cold bits; on
+    the f32 route the candidate layer admits the brute filter on its
+    second miss (the cold pass was the first) and its block hits return
+    the uncached ids (ties aside) and distances within 1e-5.  ``use_pq``
+    bypasses the candidate layer."""
+    from repro_torch.cache import CachingBackend
+    from repro_torch.core import CacheSpec, SearchOptions, router
+    from repro_torch.parity import topk_mismatch
+    fi, _, qs, flts = _card_index(seed=21, quant=use_pq)
+    opts = SearchOptions(k=10, ef=64, use_pq=use_pq)
+    cb = CachingBackend(fi.backend, CacheSpec())
+    assert cb.device == fi.backend.device and cb.device.type == "cuda"
+    ref = router.execute(fi.backend, qs, flts, opts)
+    K.reset_launch_counts()
+    cold = router.execute(cb, qs, flts, opts)
+    scan = "pq_adc_topr" if use_pq else "filtered_topk"
+    assert K.launch_counts[scan] > 0 and K.launch_counts["gather_distance"] > 0
+    assert _same_bits(cold.ids, cold.dists, ref.ids, ref.dists)
+    assert np.array_equal(cold.routed_brute, ref.routed_brute)
+    assert cold.routed_brute.any() and not cold.routed_brute.all()
+    K.reset_launch_counts()
+    warm = router.execute(cb, qs, flts, opts)
+    assert sum(K.launch_counts.values()) == 0
+    assert _same_bits(warm.ids, warm.dists, cold.ids, cold.dists)
+    tiny = PF.And(PF.Equality("i0", 3), PF.Range("f0", 10, 12))
+    brute = opts.with_(force="brute")
+    rng = np.random.default_rng(77)
+    for round_ in range(3):      # fresh queries: only candidate blocks hit
+        q = rng.normal(size=(8, qs.shape[1])).astype(np.float32)
+        rc = router.execute(cb, q, tiny, brute)
+        rb = router.execute(fi.backend, q, tiny, brute)
+        if use_pq or round_ == 0:
+            assert _same_bits(rc.ids, rc.dists, rb.ids, rb.dists)
+        else:
+            mm = topk_mismatch(rb.ids, rb.dists, rc.ids, rc.dists,
+                               rtol=TOL, atol=TOL)
+            assert mm["dist_mismatch"] == mm["id_mismatch"] == 0, mm
+    st = cb.cache_stats()["candidates"]
+    assert (st["hits"], st["size"]) == ((0, 0) if use_pq else (16, 1))
+
+
+@pytest.mark.cuda
+def test_scope_sidecar_on_card(dev):
+    """The router's ``"scope"`` sidecar lies on the card: the cache reads
+    it to the host, strips it before the kernels, and keys the scoped
+    layers on it."""
+    from repro_torch.cache import CachingBackend
+    from repro_torch.cache.backend import _split_scope
+    from repro_torch.core import CacheSpec, SearchOptions, router
+    fi, _, qs, flts = _card_index(seed=22)
+    progs = compile_programs(flts[:3], fi.schema, 3, device=dev)
+    progs["scope"] = torch.tensor([1, 2, 1], dtype=torch.int32, device=dev)
+    inner, scopes = _split_scope(progs)
+    assert "scope" not in inner and inner["valid"] is progs["valid"]
+    assert scopes.dtype == np.int64 and scopes.tolist() == [1, 2, 1]
+    cb = CachingBackend(fi.backend, CacheSpec())
+    opts = SearchOptions(k=10, ef=64)
+    r0 = router.execute(cb, qs[:3], flts[:3], opts, scopes=[1, 2, 1])
+    r1 = router.execute(cb, qs[:3], flts[:3], opts, scopes=[2, 1, 1])
+    assert _same_bits(r0.ids, r0.dists, r1.ids, r1.dists)
+    by_scope = cb.cache_stats()["semantic"]["by_scope"]
+    assert by_scope[1]["hits"] == 1 and by_scope[1]["misses"] == 3
+    assert by_scope[2]["hits"] == 0 and by_scope[2]["misses"] == 2
+
+
+@pytest.mark.cuda
+def test_frontend_matches_query_on_card(dev):
+    """The asyncio FrontEnd over a cached engine on the card (three
+    tenants, two executor slots): every response equals
+    ``FavorIndex.query``'s bits for the same (query, filter) pair, cold
+    and warm, and the warm pass launches no kernel."""
+    import asyncio
+    from repro_torch.cache import CachingBackend
+    from repro_torch.core import (CacheSpec, FrontEndSpec, SearchOptions,
+                                  TenantSpec)
+    from repro_torch.serving import FrontEnd, ServeEngine
+    fi, _, qs, flts = _card_index(seed=23, quant=True)
+    opts = SearchOptions(k=10, ef=64, use_pq=True)
+    tenants = ("a", "b", "c")
+
+    async def main():
+        eng = ServeEngine(CachingBackend(fi.backend, CacheSpec()), opts,
+                          max_batch=16)
+        fe = FrontEnd(eng, FrontEndSpec(parallel_steps=2, tenants={
+            t: TenantSpec(weight=w) for t, w in zip(tenants, (1, 2, 4))}))
+        out = []
+        for _ in range(2):
+            K.reset_launch_counts()
+            out.append(await asyncio.gather(*[
+                fe.submit(qs[i], flts[i], tenant=tenants[i % 3])
+                for i in range(len(qs))]))
+            out.append(dict(K.launch_counts))
+        await fe.close()
+        return out
+
+    cold, cold_launches, warm, warm_launches = asyncio.run(
+        asyncio.wait_for(main(), 300))
+    assert cold_launches["pq_adc_topr"] > 0
+    assert sum(warm_launches.values()) == 0
+    res = fi.query(qs, flts, opts)
+    for rows in (cold, warm):
+        for i, r in enumerate(rows):
+            assert _same_bits(r.ids, r.dists, res.ids[i], res.dists[i])
+            assert r.route == ("brute" if res.routed_brute[i] else "graph")
+            assert r.p_hat == float(res.p_hat[i])

@@ -214,4 +214,19 @@ def test_unported_options_raise():
             assert isinstance(r, PendingExecution)
             r = r.finish()
         assert np.array_equal(r.ids, base.ids)
+    # the serving stack's part B is ported: its specs construct and
+    # validate, and the cache serves the same result
+    from repro_torch.cache import CachingBackend
+    from repro_torch.core import CacheSpec, FrontEndSpec, TenantSpec
+    fe = FrontEndSpec(tenants={"a": TenantSpec(weight=2.0, rate_qps=10.0)},
+                      parallel_steps=2)
+    assert fe.tenant("a").weight == 2.0
+    with pytest.raises(ValueError, match="semantic_threshold"):
+        CacheSpec(semantic_threshold=-1.0)
+    cb = CachingBackend(fi.backend, CacheSpec(ttl_s=5.0))
+    for _ in range(2):
+        r = execute(cb, vecs[:2], PF.TrueFilter(), SearchOptions(),
+                    scopes=np.array([1, 2]))
+        assert np.array_equal(r.ids, base.ids)
+    assert cb.cache_stats()["semantic"]["hits"] == 2
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s engine phase alone on the card.
+"""Run ``chip_smoke.py``'s engine phase, its frontend phase, or both,
+alone on the card.
 
-    python3 tools/engine_phase.py
+    python3 tools/engine_phase.py [--phases engine frontend]
 
 Builds the serve index as the smoke test's serve phase does (16,384 rows
 of the synthetic paper dataset, HNSW M=16 on the host, favor-anns' PQ
@@ -10,12 +11,15 @@ the checkout and runs ``chip_smoke.phase_engine`` on it: the engine against
 ``FavorIndex.query``, obs on against off, one profiled step, pipelined
 steps and the background merge, each printing its JSON line (with
 ``FAVOR_TRACE_DIR`` set, the profiled step's trace is kept there as
-``engine_step_trace.json.gz``).  It skips the kernel, serve, live and
-widths phases, so an engine change is measured in a third of the smoke
-test's time.  Exits non-zero when a check fails.
+``engine_step_trace.json.gz``); ``--phases frontend`` runs
+``chip_smoke.phase_frontend`` on the same index (the cached, multi-tenant
+front-end).  It skips the kernel, serve, live and widths phases, so a
+serving change is measured in a third of the smoke test's time.  Exits
+non-zero when a check fails.
 """
 from __future__ import annotations
 
+import argparse
 import shutil
 import sys
 import tempfile
@@ -28,6 +32,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", nargs="+", choices=("engine", "frontend"),
+                    default=["engine"])
+    args = ap.parse_args()
     import torch
 
     import chip_smoke as cs
@@ -52,11 +60,14 @@ def main() -> int:
     try:
         fi.save(str(tmp / "serve"))
         del fi
-        t0 = time.perf_counter()
-        launches = cs.phase_engine(torch.device("cuda"), tmp / "serve")
-        cs.emit({"tool": "engine_phase", "build_s": build_s,
-                 "engine_s": time.perf_counter() - t0,
-                 "engine_launches": launches})
+        phases = {"engine": cs.phase_engine, "frontend": cs.phase_frontend}
+        for name in args.phases:
+            t0 = time.perf_counter()
+            launches = phases[name](torch.device("cuda"), tmp / "serve")
+            cs.emit({"tool": "engine_phase", "phase": name,
+                     "build_s": build_s,
+                     "phase_s": time.perf_counter() - t0,
+                     "launches": launches})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0
