@@ -81,10 +81,23 @@ no result):
            front-end's own overhead on single requests; and the live
            script through the warm f32 cache, held to an uncached engine.
            Per pass: each layer's hit rate, request p50 / p99, QPS, the
-           pad fraction and each kernel's launches.
+           pad fraction and each kernel's launches;
+  sharded  ``ShardedBackend`` on a (1, SHARDS) mesh of the card (one
+           process drives every cell; the shards share the card) over
+           the serve index's rows, attributes and codebook, one host HNSW
+           per shard: a 1024-query batch under each of the serve phase's
+           three option sets, timed beside the serve index's
+           LocalBackend, with recall@10 by route and each kernel's
+           launches (one brute-scan launch per shard); the same backend on
+           a CPU mesh (p_hat, routes, rows), the LocalBackend's f32 brute
+           rows, a (2, SHARDS) mesh's bits, ``ServeEngine`` and
+           ``CachingBackend`` over it against ``router.execute``; and the
+           live script with a full merge (every shard rebuilt, headroom in
+           the last) and an incremental one (only the last shard grows).
 
 Then a ``kernels`` line (each kernel's ``frontend_launches`` over the
-frontend phase's cold and warm pass beside its other launch counts), the
+frontend phase's cold and warm pass and its ``sharded_launches`` per
+sharded batch beside its other launch counts), the
 card's name and power limit as nvidia-smi reports them, and as the last
 line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -100,6 +113,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -154,6 +168,7 @@ FE_LIMITED, FE_RATE_QPS, FE_BURST = "bronze", 64.0, 256
 FE_PER_TENANT = 1024   # the burst: 3 x 1024 requests
 FE_COALESCE_MS = 2.0   # the engine's max_wait_ms
 FE_PROBES = 16         # single requests timed for the front-end's overhead
+SHARDS = 4             # sharded phase: model-axis extent of the card mesh
 
 
 def emit(obj) -> None:
@@ -833,44 +848,48 @@ def serve_pass(fi, opts, qs, flts, names, truth, label: str):
     return line, res, rec
 
 
-def cpu_check(fi, opts, qs, flts, res, label: str) -> dict:
-    """The port's CPU path on a query subset, on the same graph, codebook
-    and codes: identical p_hat and routes; brute rows at the kernel bar
-    (under ``use_pq``: rows with a near-tie at the ADC candidate boundary R
-    excluded and counted); graph rows >= 90 % identical."""
+def cpu_check(query, adc, res, qs, flts, opts, label: str) -> dict:
+    """A CPU copy of the card's backend on a query subset (16 brute-routed,
+    48 graph-routed), on the same graph(s), codebook and codes: identical
+    p_hat and routes; brute rows at the kernel bar (under ``use_pq``: rows
+    with a near-tie at the ADC candidate boundary R in any scan excluded and
+    counted); graph rows >= 90 % identical.
+
+    ``query(qs, flts, opts)`` answers on the CPU copy; ``adc`` is (rerank,
+    compile(filters) -> CPU programs, [(codes, norms, ints, floats,
+    centroids)] with one entry for each ``pq_adc_topr`` scan a brute query
+    runs: one for the local index, one per shard)."""
     import numpy as np
     import torch
 
-    from repro_torch.core import FavorIndex
     from repro_torch.kernels.pq_adc import ops as pq
     from repro_torch.parity import topk_mismatch
     from repro_torch.quant.adc import build_luts
 
+    t0 = time.perf_counter()
     brute = res.routed_brute
-    cpu = FavorIndex(fi.index, fi.attrs, fi.spec, codebook=fi.codebook,
-                     codes=(None if fi._codes is None else
-                            fi._codes[:fi.index.n].cpu().numpy()),
-                     device="cpu")
     sub = np.r_[np.nonzero(brute)[0][:16], np.nonzero(~brute)[0][:48]]
     sflts = [flts[i] for i in sub]
-    rc = cpu.query(qs[sub], sflts, opts)
-    check(bool((rc.p_hat == res.p_hat[sub]).all()), f"{label}: p_hat card == cpu")
+    rc = query(qs[sub], sflts, opts)
+    check(bool((rc.p_hat.view(np.uint32)
+                == res.p_hat[sub].view(np.uint32)).all()),
+          f"{label}: p_hat card == cpu")
     check(bool((rc.routed_brute == brute[sub]).all()),
           f"{label}: routes card == cpu")
     bs = rc.routed_brute
     keep = np.ones(int(bs.sum()), bool)
-    if opts.use_pq:
-        r = max(K, cpu.rerank * K)
-        _, pn, pi, pf = cpu._pf
-        luts = build_luts(cpu._cb_dev[0], torch.as_tensor(qs[sub][bs]))
-        _, adc = pq.pq_adc_topr(cpu._codes, pn, pi, pf, luts,
-                                cpu.compile_filters([sflts[i] for i in
-                                                     np.nonzero(bs)[0]]),
-                                r=r + 1)
-        adc = adc.numpy().astype(np.float64)
-        with np.errstate(invalid="ignore"):
-            near = ~(adc[:, r] - adc[:, r - 1] > RTOL * adc[:, r - 1])
-        keep = ~(near & np.isfinite(adc[:, r]))
+    if opts.use_pq and bs.any():
+        rerank, compile_programs, scans = adc
+        r = max(K, (opts.rerank or rerank) * K)
+        bq = torch.as_tensor(qs[sub][bs])
+        progs = compile_programs([sflts[i] for i in np.nonzero(bs)[0]])
+        for codes, norms, ints, floats, centroids in scans:
+            _, d = pq.pq_adc_topr(codes, norms, ints, floats,
+                                  build_luts(centroids, bq), progs, r=r + 1)
+            d = d.numpy().astype(np.float64)
+            with np.errstate(invalid="ignore"):
+                near = ~(d[:, r] - d[:, r - 1] > RTOL * d[:, r - 1])
+            keep &= ~(near & np.isfinite(d[:, r]))
     m = topk_mismatch(rc.ids[bs][keep], rc.dists[bs][keep],
                       res.ids[sub][bs][keep], res.dists[sub][bs][keep],
                       RTOL, ATOL)
@@ -882,7 +901,24 @@ def cpu_check(fi, opts, qs, flts, res, label: str) -> dict:
     return {"queries": int(len(sub)), "graph_identical_rows": same_graph,
             "brute_rows_near_tie_excluded": int((~keep).sum()),
             "brute_identical_rows": m["identical_rows"],
-            "brute_max_abs_diff": m["max_abs_diff"]}
+            "brute_max_abs_diff": m["max_abs_diff"],
+            "seconds": time.perf_counter() - t0}
+
+
+def local_cpu_copy(fi):
+    """``cpu_check``'s (query, adc) for a FavorIndex: the same graph,
+    codebook and codes on the CPU."""
+    from repro_torch.core import FavorIndex
+
+    cpu = FavorIndex(fi.index, fi.attrs, fi.spec, codebook=fi.codebook,
+                     codes=(None if fi._codes is None else
+                            fi._codes[:fi.index.n].cpu().numpy()),
+                     device="cpu")
+    if cpu._codes is None:
+        return cpu.query, None
+    _, pn, pi, pf = cpu._pf
+    return cpu.query, (cpu.rerank, cpu.compile_filters,
+                       [(cpu._codes, pn, pi, pf, cpu._cb_dev[0])])
 
 
 def phase_serve(dev, saved: Path):
@@ -932,6 +968,7 @@ def phase_serve(dev, saved: Path):
     need = {"f32": ("filtered_topk", "gather_distance"),
             "use_pq": ("pq_adc_topr", "gather_distance"),
             "use_pq+graph_pq": ("pq_adc_topr", "pq_adc_gather")}
+    cpu_copy = local_cpu_copy(fi)
     lines, recs, results = {}, {}, {}
     for label, opts in passes.items():
         line, res, rec = serve_pass(fi, opts, qs, flts, names, truth, label)
@@ -940,7 +977,7 @@ def phase_serve(dev, saved: Path):
             check(line["launches"][kname] > 0,
                   f"{label}: {kname} launched on the main path: "
                   f"{line['launches']}")
-        line["cpu_check"] = cpu_check(fi, opts, qs, flts, res, label)
+        line["cpu_check"] = cpu_check(*cpu_copy, res, qs, flts, opts, label)
         lines[label], recs[label] = line, (rec, res.routed_brute)
         if label != "use_pq+graph_pq":
             emit(line)
@@ -2242,6 +2279,351 @@ def phase_widths(rates, kernels, gathers, widths, top: int = 3) -> None:
     emit(line)
 
 
+def sharded_copy(sh, mesh):
+    """The same ShardedBackend's arrays, codebook and options on ``mesh``."""
+    from repro_torch.core import ShardedBackend
+    return ShardedBackend(mesh, sh.sharded, sh.schema, sel_cfg=sh.sel_cfg,
+                          codebook=sh.codebook, rerank=sh.rerank)
+
+
+def timed_batches(query, qs, flts, opts, label: str):
+    """``query(qs, flts, opts)`` once counted (launch counters reset just
+    before it, read just after it) and SERVE_REPEATS - 1 times more, each
+    returning the same ids; after a 64-query warm-up.  Returns the counted
+    result, its launches and the sorted batch times (ms)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as Kn
+
+    query(qs[:64], flts[:64], opts)
+    torch.cuda.synchronize()
+    Kn.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = query(qs, flts, opts)
+    walls = [time.perf_counter() - t0]
+    launches = dict(Kn.launch_counts)
+    for _ in range(SERVE_REPEATS - 1):
+        t0 = time.perf_counter()
+        again = query(qs, flts, opts)
+        walls.append(time.perf_counter() - t0)
+        check(bool(np.array_equal(again.ids, res.ids)),
+              f"{label}: the batch is deterministic")
+    return res, launches, sorted(1e3 * w for w in walls)
+
+
+def route_recall(res, truth) -> dict:
+    import numpy as np
+    rec = np.array([refimpl_recall(res.ids[i], truth[i])
+                    for i in range(len(truth))])
+    br = res.routed_brute
+    return {"brute": float(rec[br].mean()), "graph": float(rec[~br].mean()),
+            "brute_rows": int(br.sum()), "graph_rows": int((~br).sum())}
+
+
+def sharded_cpu_copy(sh):
+    """``cpu_check``'s (query, adc) for a ShardedBackend: the same arrays,
+    codebook and options on a CPU mesh of the same shape."""
+    import torch
+
+    from repro_torch.core import router
+    from repro_torch.core.distributed import make_mesh
+
+    cpu = sharded_copy(sh, make_mesh((1, SHARDS), device="cpu"))
+
+    def norms(cell):
+        if "alive" not in cell:
+            return cell["norms"]
+        return torch.where(cell["alive"], cell["norms"], float("inf"))
+
+    scans = [(c["codes"], norms(c), c["attrs_int"], c["attrs_float"],
+              c["centroids"]) for c in cpu.db[0]]
+    return ((lambda q, f, o: router.execute(cpu, q, f, o)),
+            (cpu.rerank,
+             lambda f: router.compile_programs(f, sh.schema, len(f),
+                                               device="cpu"), scans))
+
+
+def sharded_live(sh, qs, flts, opts) -> dict:
+    """The live phase's script through the sharded backend, then a second,
+    smaller round of upserts and deletes: no deleted or replaced id comes
+    back (both routes, and ``use_pq`` brute), brute recall@10 is 1.0
+    against exact ground truth over the live rows before ``merge()``,
+    after the first (full: every shard rebuilt with headroom in the last)
+    and after the second (incremental: only the last shard grows, and only
+    its ``shard_versions`` entry moves)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as Kn
+    from repro_torch.core import router
+    from repro_torch.core import filters as F
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.filtered_topk import ops as ft
+
+    a = sh.sharded.arrays
+    n0, d, schema = a["vectors"].shape[0], a["vectors"].shape[1], sh.schema
+    base = (a["vectors"].copy(), a["attrs_int"].copy(),
+            a["attrs_float"].copy())
+    script = live_script(n0, d, schema)
+    steps = {}
+    t0 = time.perf_counter()
+    apply_live_script(sh, script)
+    steps["mutate_s"] = time.perf_counter() - t0
+    more_n = LIVE_UPSERT // 4
+    more_v = synthetic.make_queries(more_n, d, dataset_seed=SEED, seed=500)
+    more_a = F.random_attributes(schema, more_n, seed=SEED + 13)
+    rows = {"v": np.concatenate([base[0], script["vectors"], more_v]),
+            "i": np.concatenate([base[1], script["attrs"].ints, more_a.ints]),
+            "f": np.concatenate([base[2], script["attrs"].floats,
+                                 more_a.floats])}
+    dead = list(script["dead"])
+    progs = None
+
+    def serve(label, live_n):
+        nonlocal progs
+        norms = np.einsum("nd,nd->n", rows["v"][:live_n],
+                          rows["v"][:live_n]).astype(np.float32)
+        norms[np.asarray(dead, np.int64)] = np.inf
+        db = [torch.as_tensor(np.ascontiguousarray(x), device=sh.device)
+              for x in (rows["v"][:live_n], norms, rows["i"][:live_n],
+                        rows["f"][:live_n])]
+        if progs is None:
+            progs = router.compile_programs(flts, schema, len(flts),
+                                            device=sh.device)
+        gt, _ = ft.filtered_topk_plain(
+            *db, torch.as_tensor(qs, device=sh.device), progs, k=K)
+        gt = gt.cpu().numpy()
+        torch.cuda.synchronize()
+        Kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = router.execute(sh, qs, flts, opts)
+        wall = time.perf_counter() - t0
+        launches = dict(Kn.launch_counts)
+        pq = router.execute(sh, qs, flts, opts.with_(use_pq=True))
+        for r, what in ((res, "f32"), (pq, "use_pq")):
+            check(not np.isin(r.ids, dead).any(),
+                  f"sharded live {label} ({what}): a deleted or replaced id "
+                  "came back")
+        rec = route_recall(res, gt)
+        check(rec["brute"] == 1.0,
+              f"sharded live {label}: brute recall@10 {rec['brute']}")
+        steps[label] = {"batch_ms": 1e3 * wall, "launches": launches,
+                        "recall_at_10": rec,
+                        "use_pq_recall_at_10": route_recall(pq, gt),
+                        "shard_versions": list(sh.shard_versions())}
+
+    serve("before_merge", n0 + LIVE_UPSERT)
+    for label, live_n in (("full_merge", n0 + LIVE_UPSERT),
+                          ("incremental_merge",
+                           n0 + LIVE_UPSERT + more_n)):
+        if label == "incremental_merge":
+            ids = sh.upsert(more_v, more_a.ints, more_a.floats)
+            check(bool((ids == n0 + LIVE_UPSERT + np.arange(more_n)).all()),
+                  "sharded: upsert ids are positional after a merge")
+            kept = script["ids"][~np.isin(script["ids"], script["dead"])]
+            gone = np.r_[ids[:more_n // 8], kept[-(more_n // 8):]]
+            found = sh.delete(gone)
+            check(found == len(gone), f"sharded: delete found {found}")
+            dead += list(gone)
+        before = sh.shard_versions()
+        torch.cuda.synchronize()
+        Kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sh.merge()
+        torch.cuda.synchronize()
+        after = sh.shard_versions()
+        steps[label] = {"merge_s": time.perf_counter() - t0,
+                        "launches": dict(Kn.launch_counts), **out,
+                        "capacity": int(sh.sharded.arrays["vectors"]
+                                        .shape[0]),
+                        "shard_rows": sh.sharded.shard_rows}
+        incr = label == "incremental_merge"
+        check(out["incremental"] == incr and sh.live_stats()["delta_rows"]
+              == 0, f"sharded {label}: {out}")
+        moved = [i for i, (x, y) in enumerate(zip(before, after)) if x != y]
+        check(moved == ([SHARDS - 1] if incr else list(range(SHARDS))),
+              f"sharded {label}: shard versions {before} -> {after}")
+        serve(f"after_{label}", live_n)
+    return steps
+
+
+def phase_sharded(dev, saved: Path) -> dict:
+    """The sharded backend on a (1, SHARDS) mesh of the card: the serve
+    phase's rows, attributes and PQ codebook (from the saved index), one
+    host HNSW per shard at the serve phase's parameters.
+
+      1. one 1024-query batch of the mixed filters under f32, ``use_pq``
+         and ``use_pq`` + ``graph_quant="pq"``, timed SERVE_REPEATS times,
+         beside the same passes on the serve index's LocalBackend: recall@10
+         by route against exact filtered ground truth, each kernel's
+         launches per batch (one brute-scan launch per shard);
+      2. each pass against the same backend on a CPU mesh (``cpu_check``:
+         p_hat, routes, brute rows at the kernel bar with ``use_pq``'s ADC
+         boundary near-ties excluded, graph rows >= 90 % identical); the
+         f32 brute route against the LocalBackend over the same rows (ids
+         outside ties, distances at the kernel bar); graph recall within
+         0.1 of the LocalBackend's, ``use_pq`` brute recall within 0.02 of
+         the sharded f32's;
+      3. a (2, SHARDS) mesh on the same card: the same bits;
+      4. ``ServeEngine`` over the sharded backend: 1024 requests with
+         ``router.execute``'s bits; ``CachingBackend`` over it, cold and
+         warm, with the uncached bits, finding the sharded corpus;
+      5. the live script (``sharded_live``) with a full and an incremental
+         merge.
+    Returns each kernel's launches on the pass that runs it."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as Kn
+    from repro_torch.cache import CachingBackend
+    from repro_torch.configs.favor_anns import FavorServeConfig
+    from repro_torch.core import (BuildSpec, CacheSpec, HnswParams, QuantSpec,
+                                  SearchOptions, ShardedBackend, router)
+    from repro_torch.core import filters as F
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.filtered_topk import ops as ft
+    from repro_torch.parity import topk_mismatch
+    from repro_torch.serving import ServeEngine
+
+    t_phase = time.perf_counter()
+    fi = load_serve(saved)
+    vecs, attrs, schema = fi.index.vectors, fi.attrs, fi.schema
+    n, d, b = vecs.shape[0], vecs.shape[1], BATCH
+    spec = BuildSpec(hnsw=HnswParams(M=16, efc=100, seed=SEED),
+                     quant=QuantSpec(kind="pq", m=PQ_M, nbits=PQ_BITS,
+                                     rerank=RERANK))
+    t0 = time.perf_counter()
+    sh = ShardedBackend.build(vecs, attrs, make_mesh((1, SHARDS)), spec,
+                              codebook=fi.codebook, seed=SEED)
+    build_s = time.perf_counter() - t0
+    check(sh.device.type == "cuda" and sh.sharded.n_shards == SHARDS
+          and sh.quant == "pq", "the sharded backend lies on the card")
+    emit({"phase": "sharded", "part": "build", "n": n, "d": d,
+          "mesh": sh.mesh.shape, "shard_rows": sh.sharded.shard_rows,
+          "sample_rows": sh.sharded.sample_rows, "build_s": build_s,
+          "hnsw": {"M": 16, "M0": 32, "efc": 100}})
+    qs = synthetic.make_queries(b, d, dataset_seed=SEED, seed=100)
+    flts, names = mixed_filters(F, schema, b)
+    progs = fi.compile_filters(flts)
+    pv, pn, pi, pf = fi._pf
+    gt, _ = ft.filtered_topk_plain(pv, pn, pi, pf,
+                                   torch.as_tensor(qs, device=dev), progs,
+                                   k=K)
+    truth = gt.cpu().numpy()
+
+    def sharded_query(q, f, o):
+        return router.execute(sh, q, f, o)
+
+    passes = {
+        "f32": SearchOptions(k=K, ef=EF),
+        "use_pq": SearchOptions(k=K, ef=EF, use_pq=True),
+        "use_pq+graph_pq": SearchOptions(k=K, ef=EF, use_pq=True,
+                                         graph_quant="pq"),
+    }
+    scan = {"f32": "filtered_topk", "use_pq": "pq_adc_topr",
+            "use_pq+graph_pq": "pq_adc_topr"}
+    gather = {"f32": "gather_distance", "use_pq": "gather_distance",
+              "use_pq+graph_pq": "pq_adc_gather"}
+    cpu_copy = sharded_cpu_copy(sh)
+    results, lines = {}, {}
+    for label, opts in passes.items():
+        line = {"phase": "sharded", "part": label}
+        for who, query in (("sharded", sharded_query), ("local", fi.query)):
+            res, launches, walls = timed_batches(query, qs, flts, opts,
+                                                 f"{who} {label}")
+            line[who] = {"batch_ms": walls,
+                         "p50_ms": float(np.percentile(walls, 50)),
+                         "launches": launches,
+                         "recall_at_10": route_recall(res, truth)}
+            results[(who, label)] = res
+        sl = line["sharded"]
+        check(sl["launches"].get(scan[label], 0) == SHARDS,
+              f"sharded {label}: one {scan[label]} launch per shard: "
+              f"{sl['launches']}")
+        check(sl["launches"].get(gather[label], 0) >= SHARDS,
+              f"sharded {label}: {gather[label]} launched on every shard: "
+              f"{sl['launches']}")
+        sl["gather_launches_per_shard"] = (
+            sl["launches"][gather[label]] / SHARDS)
+        rs, rl = sl["recall_at_10"], line["local"]["recall_at_10"]
+        check(rs["graph"] >= rl["graph"] - 0.1,
+              f"sharded {label}: graph recall {rs['graph']} vs local "
+              f"{rl['graph']}")
+        line["cpu_check"] = cpu_check(*cpu_copy, results[("sharded", label)],
+                                      qs, flts, opts, f"sharded {label}")
+        lines[label] = line
+        emit(line)
+    rs32 = lines["f32"]["sharded"]["recall_at_10"]
+    check(rs32["brute"] == 1.0, f"sharded f32 brute recall {rs32['brute']}")
+    for label in ("use_pq", "use_pq+graph_pq"):
+        rq = lines[label]["sharded"]["recall_at_10"]["brute"]
+        check(rq >= rs32["brute"] - RECALL_SLACK,
+              f"sharded {label}: brute recall {rq} vs f32 {rs32['brute']}")
+
+    # f32 brute rows: the LocalBackend over the same rows
+    forced = SearchOptions(k=K, ef=EF, force="brute")
+    r_sh = router.execute(sh, qs, flts, forced)
+    r_lo = fi.query(qs, flts, forced)
+    m = topk_mismatch(r_lo.ids, r_lo.dists, r_sh.ids, r_sh.dists, RTOL, ATOL)
+    check(m["dist_mismatch"] == 0 and m["id_mismatch"] == 0,
+          f"sharded f32 brute vs the LocalBackend: {m}")
+    extra = {"brute_vs_local": {
+        **m, "ids_equal_rows": float((r_sh.ids == r_lo.ids).all(axis=1)
+                                     .mean())}}
+
+    # the data-axis split
+    wide = sharded_copy(sh, make_mesh((2, SHARDS)))
+    rw = router.execute(wide, qs, flts, passes["f32"])
+    check(same_bits(rw, results[("sharded", "f32")])
+          and bool((rw.p_hat == results[("sharded", "f32")].p_hat).all()),
+          f"sharded: mesh (2, {SHARDS}) gives the (1, {SHARDS}) bits")
+    del wide
+    extra["mesh_2x_same_bits"] = True
+
+    # the engine and the cache over the sharded backend
+    opts = FavorServeConfig().search_options()
+    eng = ServeEngine(sh, opts, max_batch=FavorServeConfig.batch,
+                      max_wait_ms=2.0)
+    torch.cuda.synchronize()
+    Kn.reset_launch_counts()
+    t0 = time.perf_counter()
+    submit_all(eng, qs, flts)
+    out = eng.run()
+    wall = time.perf_counter() - t0
+    launches = dict(Kn.launch_counts)
+    responses_match_query(out, SimpleNamespace(query=sharded_query), qs,
+                          flts, opts, "sharded engine")
+    extra["engine"] = {"requests": len(out), "steps": eng.stats["batches"],
+                       "run_s": wall, "qps": len(out) / wall,
+                       "latency_ms": eng.latency_percentiles(),
+                       "launches": launches}
+    cb = CachingBackend(sh, CacheSpec())
+    ref = router.execute(sh, qs, flts, opts)
+    cold = router.execute(cb, qs, flts, opts)
+    warm = router.execute(cb, qs, flts, opts)
+    check(same_bits(cold, ref) and same_bits(warm, cold),
+          "sharded cache: cold == uncached, warm == cold, bit for bit")
+    check(cb._corpus() is not None
+          and cb._corpus()[0].shape == sh.sharded.arrays["vectors"].shape,
+          "sharded cache: the candidate layer finds the sharded corpus")
+    st = cb.cache_stats()
+    extra["cache"] = {layer: {c: int(st[layer][c]) for c in ("hits",
+                                                             "misses")}
+                      for layer in ("selectivity", "candidates", "semantic")}
+    emit({"phase": "sharded", "part": "checks", **extra})
+
+    emit({"phase": "sharded", "part": "live",
+          **sharded_live(sh, qs, flts, passes["f32"])})
+    emit({"phase": "sharded", "part": "done",
+          "phase_s": time.perf_counter() - t_phase})
+    return {"filtered_topk": lines["f32"]["sharded"]["launches"],
+            "gather_distance": lines["f32"]["sharded"]["launches"],
+            "pq_adc_topr": lines["use_pq"]["sharded"]["launches"],
+            "pq_adc_gather": lines["use_pq+graph_pq"]["sharded"]["launches"]}
+
+
 def refimpl_recall(found, truth_row) -> float:
     from repro_torch.core import refimpl
     return refimpl.recall_at_k(found, truth_row[truth_row >= 0], K)
@@ -2284,6 +2666,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         engine_launches = phase_engine(dev, saved)
         frontend_launches = phase_frontend(dev, saved)
+        sharded_launches = phase_sharded(dev, saved)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on the pass of the main path that runs it, and
@@ -2295,6 +2678,7 @@ def main() -> int:
         kernels[kname]["engine_launches"] = engine_launches[kname]
         kernels[kname]["frontend_launches"] = {
             p: frontend_launches[kname][p][kname] for p in ("cold", "warm")}
+        kernels[kname]["sharded_launches"] = sharded_launches[kname][kname]
     emit({"kernels": [{k: v for k, v in row.items() if k != "shape"}
                       for row in kernels.values()]})
     print(smi, flush=True)

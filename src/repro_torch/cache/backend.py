@@ -71,13 +71,20 @@ def _corpus_view(inner):
 
     A LocalBackend's FavorIndex keeps its host HNSW (``norms`` are |v|^2)
     and attribute table beside the device arrays; those are read, not the
-    padded device scan arrays, which carry pad rows past ``n``."""
+    padded device scan arrays, which carry pad rows past ``n``.  A
+    ShardedBackend's arrays are host numpy in global row order."""
     fi = getattr(inner, "index", None)           # LocalBackend -> FavorIndex
     if fi is not None:
         hx = fi.index
         return (np.asarray(hx.vectors, np.float32),
                 np.asarray(hx.norms, np.float32),
                 fi.attrs.ints, fi.attrs.floats)
+    sharded = getattr(inner, "sharded", None)    # ShardedBackend
+    if sharded is not None:
+        a = sharded.arrays
+        return (np.asarray(a["vectors"], np.float32),
+                np.asarray(a["norms"], np.float32),
+                a["attrs_int"], a["attrs_float"])
     return None
 
 
@@ -167,6 +174,11 @@ class CachingBackend:
 
     def version(self) -> int:
         return self.inner.version()
+
+    def bytes_per_hop(self, opts: SearchOptions) -> int:
+        # spelled out, not left to __getattr__: isinstance against the
+        # runtime-checkable Backend protocol looks attributes up statically
+        return self.inner.bytes_per_hop(opts)
 
     def scope_id(self, name) -> int:
         """Intern a tenant/session name to its dense scope id ("" -> 0)."""

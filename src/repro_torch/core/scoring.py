@@ -27,11 +27,13 @@ re-ranks their final TD candidates exactly.  State keys named in
 slices every other state leaf per lane.
 
 ``bytes_per_row`` is what one gathered neighbour row streams from device
-memory -- 4*d for f32, M codes for PQ, d codes for SQ.
+memory -- 4*d for f32, M codes for PQ, d codes for SQ; ``required_keys``
+names the ``g`` arrays a scorer reads.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Protocol, runtime_checkable
 
 import torch
 
@@ -40,12 +42,47 @@ from ..kernels.gather_distance import ops as gd_ops
 from ..kernels.pq_adc import ops as pq_ops
 
 
+def exclusion_compose(d, td, D):
+    """Eq. 2: adjusted distance ``d + D`` for non-target rows, ``d`` for TD
+    rows (``D`` broadcasts against ``d``).  Order-preserving within each
+    class: two TD rows (or two non-TD rows) get the same constant added."""
+    return d + torch.where(td, 0.0, D)
+
+
+@runtime_checkable
+class Scorer(Protocol):
+    """Distance scorer contract consumed by the traversal."""
+
+    kind: str    # "exact" | "pq" | "sq" -- the SearchOptions.graph_quant name
+    exact: bool  # True -> score_block returns true f32 distances (no re-rank)
+
+    def required_keys(self) -> tuple[str, ...]:
+        """``g`` arrays this scorer reads."""
+        ...
+
+    def prepare(self, g: dict, queries, programs: dict) -> dict:
+        """Per-query device state built once before the traversal loop."""
+        ...
+
+    def score_block(self, g: dict, state: dict, ids, D):
+        """(dbar (B, M) f32, td (B, M) bool) for the gathered DB rows
+        ``ids`` (>= 0) under the per-query exclusion distance D (B,)."""
+        ...
+
+    def bytes_per_row(self, g: dict) -> int:
+        """Bytes one gathered neighbour row streams from device memory."""
+        ...
+
+
 @dataclass(frozen=True)
 class ExactScorer:
     """Full-precision float32 scoring."""
     kind = "exact"
     exact = True
     shared_state = ()
+
+    def required_keys(self) -> tuple[str, ...]:
+        return ("vectors", "norms")
 
     def prepare(self, g: dict, queries, programs: dict) -> dict:
         return {"q": queries, "programs": programs}
@@ -75,6 +112,9 @@ class PqAdcScorer:
     exact = False
     shared_state = ()
 
+    def required_keys(self) -> tuple[str, ...]:
+        return ("codes", "centroids")
+
     def prepare(self, g: dict, queries, programs: dict) -> dict:
         from ..quant.adc import build_luts
         luts = build_luts(g["centroids"], queries)
@@ -89,6 +129,11 @@ class PqAdcScorer:
 
     def bytes_per_row(self, g: dict) -> int:
         return int(g["codes"].shape[1])
+
+    def lut_bytes(self, g: dict, batch: int) -> int:
+        """Bytes of the (batch, M, K) LUT state ``prepare`` builds."""
+        m, k = int(g["centroids"].shape[0]), int(g["centroids"].shape[1])
+        return (2 if self.lut_bf16 else 4) * batch * m * k
 
 
 @dataclass(frozen=True)
@@ -110,6 +155,9 @@ class SqScorer:
     exact = False
     shared_state = ("w2",)      # (d,), query-independent
 
+    def required_keys(self) -> tuple[str, ...]:
+        return ("codes", "sq_lo", "sq_scale")
+
     def prepare(self, g: dict, queries, programs: dict) -> dict:
         s, lo = g["sq_scale"], g["sq_lo"]
         qn = (queries * queries).sum(dim=-1)
@@ -130,13 +178,13 @@ class SqScorer:
                                    min=0.0))
         td = F.eval_program_gathered(state["programs"], g["attrs_int"][safe],
                                      g["attrs_float"][safe])
-        return d + torch.where(td, 0.0, D[:, None]), td
+        return exclusion_compose(d, td, D[:, None]), td
 
     def bytes_per_row(self, g: dict) -> int:
         return int(g["codes"].shape[1])
 
 
-def scorer_for(cfg):
+def scorer_for(cfg) -> Scorer:
     """The scorer a SearchConfig asks for (``cfg.graph_quant``, validated
     by ``SearchOptions``)."""
     return {None: ExactScorer, "pq": PqAdcScorer,

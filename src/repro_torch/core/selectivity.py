@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import filters as F
+from . import selector
 
 
 def sample_indices(n: int, rate: float = 0.01, min_size: int = 256,
@@ -35,6 +36,37 @@ def relative_error(n: int, p: float, total: int) -> float:
     if p <= 0.0:
         return float("inf")
     return float(np.sqrt((1.0 - p) / (n * p) * max(0.0, 1.0 - n / total)))
+
+
+def _programs(programs, device) -> dict:
+    return dict(zip(("valid", "imask", "flo", "fhi"),
+                    F._program_tensors(programs, device)))
+
+
+def estimate_selectivity(program, sample_ints, sample_floats):
+    """p_hat for a single compiled program over the pre-drawn sample rows:
+    a float64 numpy scalar for numpy rows; for tensors a float32 0-d tensor,
+    ``estimate_selectivity_batched`` on a batch of one."""
+    if isinstance(sample_ints, torch.Tensor):
+        one = {k: v[None] for k, v in
+               _programs(program, sample_ints.device).items()}
+        return estimate_selectivity_batched(one, sample_ints,
+                                            sample_floats)[0]
+    return F.eval_program(program, sample_ints, sample_floats).numpy().mean()
+
+
+def estimate_selectivity_batched(programs, sample_ints, sample_floats):
+    """(B,) p_hat for batched programs: numpy's float64 mean for numpy rows;
+    for tensors ``selector.estimate_batched`` on the sample's device."""
+    if isinstance(sample_ints, torch.Tensor):
+        dev = sample_ints.device
+        return selector.estimate_batched(_programs(programs, dev),
+                                         sample_ints,
+                                         F._as_tensor(sample_floats, dev))
+    ints = F._as_tensor(sample_ints)
+    mask = F.eval_program_batched(_programs(programs, ints.device), ints,
+                                  F._as_tensor(sample_floats))
+    return mask.numpy().mean(axis=1)
 
 
 def exact_selectivity(program, attrs: "F.AttributeTable") -> float:

@@ -10,7 +10,8 @@ from ``ROADMAP.md`` section 3: brute ids identical, graph ids identical on
 rtol/atol 1e-5 (candidate-block hits are the same numpy scan in both
 packages, so bit-identical), and the ``cache_stats()`` dicts equal.  The
 pure-Python modules (``lru``, ``layers``) are pinned to their originals
-source for source.  The sharded wrapper waits for the sharded slice."""
+source for source.  The wrapper over the sharded backend is held in
+``tests/test_torch_sharded.py``."""
 from pathlib import Path
 from types import SimpleNamespace
 

@@ -1091,3 +1091,123 @@ def test_frontend_matches_query_on_card(dev):
             assert _same_bits(r.ids, r.dists, res.ids[i], res.dists[i])
             assert r.route == ("brute" if res.routed_brute[i] else "graph")
             assert r.p_hat == float(res.p_hat[i])
+
+
+def _card_sharded(mesh_shape=(1, 4), seed=31, n=2048, d=16):
+    """A ShardedBackend on a mesh of the card (several shards share it),
+    with a PQ codebook trained on the card, and the queries / mixed
+    filters of ``_card_index``."""
+    from repro_torch.core import (BuildSpec, HnswParams, QuantSpec,
+                                  ShardedBackend)
+    from repro_torch.core.distributed import make_mesh
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    attrs = PF.random_attributes(PF.paper_schema(), n, seed=seed + 1)
+    spec = BuildSpec(hnsw=HnswParams(M=8, efc=48, seed=3),
+                     quant=QuantSpec(kind="pq", m=4, nbits=8, train_iters=5))
+    be = ShardedBackend.build(vecs, attrs, make_mesh(mesh_shape), spec)
+    assert be.device.type == "cuda" and be.mesh.first_device.type == "cuda"
+    pool = [PF.Equality("b0", True), PF.Range("f0", 10.0, 60.0),
+            PF.And(PF.Equality("i0", 3), PF.Range("f0", 10, 12))]
+    qs = rng.normal(size=(48, d)).astype(np.float32)
+    return be, vecs, attrs, qs, [pool[i % 3] for i in range(len(qs))]
+
+
+@pytest.mark.cuda
+def test_sharded_brute_on_card_matches_cpu(dev):
+    """A (1, 4) mesh on the card: the f32 and PQ brute scans launch their
+    kernel once per shard and agree with the same backend on a CPU mesh
+    (ids outside ties, distances within 1e-5); p_hat and routes are the
+    CPU's bits; the graph route launches a gather on every shard."""
+    from repro_torch.core import SearchOptions, ShardedBackend, router
+    from repro_torch.core.distributed import make_mesh
+    be, _, _, qs, flts = _card_sharded()
+    cpu = ShardedBackend(make_mesh((1, 4), device="cpu"), be.sharded,
+                         be.schema, sel_cfg=be.sel_cfg, codebook=be.codebook,
+                         rerank=be.rerank)
+    for use_pq, kname in ((False, "filtered_topk"), (True, "pq_adc_topr")):
+        opts = SearchOptions(k=10, ef=64, force="brute", use_pq=use_pq)
+        K.reset_launch_counts()
+        rc = router.execute(be, qs, flts, opts)
+        assert K.launch_counts[kname] == 4, dict(K.launch_counts)
+        rh = router.execute(cpu, qs, flts, opts)
+        mm = topk_mismatch(rh.ids, rh.dists, rc.ids, rc.dists,
+                           rtol=TOL, atol=TOL)
+        assert mm["dist_mismatch"] == mm["id_mismatch"] == 0, (use_pq, mm)
+    opts = SearchOptions(k=10, ef=64)
+    K.reset_launch_counts()
+    rc = router.execute(be, qs, flts, opts)
+    assert K.launch_counts["gather_distance"] >= 4
+    rh = router.execute(cpu, qs, flts, opts)
+    assert np.array_equal(rc.p_hat.view(np.uint32), rh.p_hat.view(np.uint32))
+    assert np.array_equal(rc.routed_brute, rh.routed_brute)
+    assert rc.routed_brute.any() and not rc.routed_brute.all()
+
+
+@pytest.mark.cuda
+def test_sharded_data_axis_split_on_card(dev):
+    """Meshes (2, 4) and (1, 4) on the card give the same bits on every
+    route (the kernels do not depend on batch width or composition)."""
+    from repro_torch.core import SearchOptions, ShardedBackend, router
+    from repro_torch.core.distributed import make_mesh
+    be, _, _, qs, flts = _card_sharded()
+    wide = ShardedBackend(make_mesh((2, 4)), be.sharded, be.schema,
+                          sel_cfg=be.sel_cfg, codebook=be.codebook,
+                          rerank=be.rerank)
+    for opts in (SearchOptions(k=10, ef=64),
+                 SearchOptions(k=10, ef=64, use_pq=True, graph_quant="pq")):
+        a = router.execute(be, qs[:47], flts[:47], opts)   # odd: a pad row
+        b = router.execute(wide, qs[:47], flts[:47], opts)
+        assert _same_bits(a.ids, a.dists, b.ids, b.dists)
+        assert np.array_equal(a.p_hat.view(np.uint32),
+                              b.p_hat.view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_sharded_live_on_card(dev):
+    """Upserts, deletes and both merge shapes on a (1, 4) card mesh: the
+    upserted rows are found, no deleted or replaced id comes back on any
+    route, the first merge rebuilds every shard and the second grows only
+    the last one."""
+    from repro_torch.core import SearchOptions, router
+    be, vecs, attrs, qs, flts = _card_sharded()
+    n0 = vecs.shape[0]
+    rng = np.random.default_rng(9)
+    new = rng.normal(size=(64, vecs.shape[1])).astype(np.float32)
+    ids = be.upsert(new[:48], attrs.ints[:48], attrs.floats[:48])
+    rid = be.upsert(new[48:], attrs.ints[48:64], attrs.floats[48:64],
+                    replace=np.arange(16))
+    assert (ids == n0 + np.arange(48)).all()
+    assert be.delete(np.r_[ids[:8], 100 + np.arange(8)]) == 16
+    dead = np.r_[np.arange(16), ids[:8], 100 + np.arange(8)]
+    true = PF.TrueFilter()
+
+    def check(label):
+        for opts in (SearchOptions(k=10, ef=64),
+                     SearchOptions(k=10, ef=64, force="brute"),
+                     SearchOptions(k=10, ef=64, force="brute", use_pq=True)):
+            r = router.execute(be, qs, flts, opts)
+            assert not np.isin(r.ids, dead).any(), (label, opts)
+        own = router.execute(be, new[8:48], true,
+                             SearchOptions(k=10, ef=64, force="brute"))
+        assert (own.ids[:, 0] == ids[8:]).all(), label
+
+    check("before merge")
+    before = be.shard_versions()
+    out = be.merge()
+    assert not out["incremental"] and out["merged_slots"] == 64
+    assert all(a < b for a, b in zip(before, be.shard_versions()))
+    check("after full merge")
+    more = rng.normal(size=(16, vecs.shape[1])).astype(np.float32)
+    ids2 = be.upsert(more, attrs.ints[:16], attrs.floats[:16])
+    assert be.delete(rid[:4]) == 4
+    dead = np.r_[dead, rid[:4]]
+    before = be.shard_versions()
+    out = be.merge()
+    assert out["incremental"] and out["merged_slots"] == 16
+    after = be.shard_versions()
+    assert after[:3] == before[:3] and after[3] == before[3] + 1
+    check("after incremental merge")
+    own = router.execute(be, more, true,
+                         SearchOptions(k=10, ef=64, force="brute"))
+    assert (own.ids[:, 0] == ids2).all()

@@ -39,6 +39,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
     return files
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s engine phase, its frontend phase, or both,
+"""Run ``chip_smoke.py``'s engine, frontend or sharded phase, or several,
 alone on the card.
 
-    python3 tools/engine_phase.py [--phases engine frontend]
+    python3 tools/engine_phase.py [--phases engine frontend sharded]
 
 Builds the serve index as the smoke test's serve phase does (16,384 rows
 of the synthetic paper dataset, HNSW M=16 on the host, favor-anns' PQ
@@ -13,9 +13,11 @@ steps and the background merge, each printing its JSON line (with
 ``FAVOR_TRACE_DIR`` set, the profiled step's trace is kept there as
 ``engine_step_trace.json.gz``); ``--phases frontend`` runs
 ``chip_smoke.phase_frontend`` on the same index (the cached, multi-tenant
-front-end).  It skips the kernel, serve, live and widths phases, so a
-serving change is measured in a third of the smoke test's time.  Exits
-non-zero when a check fails.
+front-end), ``--phases sharded`` ``chip_smoke.phase_sharded`` (the
+sharded backend on a (1, 4) mesh of the card over the same rows).  It
+skips the kernel, serve, live and widths phases, so a serving change is
+measured in a third of the smoke test's time.  Exits non-zero when a check
+fails.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", nargs="+", choices=("engine", "frontend"),
+    ap.add_argument("--phases", nargs="+",
+                    choices=("engine", "frontend", "sharded"),
                     default=["engine"])
     args = ap.parse_args()
     import torch
@@ -60,7 +63,8 @@ def main() -> int:
     try:
         fi.save(str(tmp / "serve"))
         del fi
-        phases = {"engine": cs.phase_engine, "frontend": cs.phase_frontend}
+        phases = {"engine": cs.phase_engine, "frontend": cs.phase_frontend,
+                  "sharded": cs.phase_sharded}
         for name in args.phases:
             t0 = time.perf_counter()
             launches = phases[name](torch.device("cuda"), tmp / "serve")
