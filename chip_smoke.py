@@ -93,11 +93,28 @@ no result):
            rows, a (2, SHARDS) mesh's bits, ``ServeEngine`` and
            ``CachingBackend`` over it against ``router.execute``; and the
            live script with a full merge (every shard rebuilt, headroom in
-           the last) and an incremental one (only the last shard grows).
+           the last) and an incremental one (only the last shard grows);
+  models   the model zoo at its published widths, random weights from the
+           seed: dlrm-rm2's retrieval_cand cell (1,000,000 items x 64, paper
+           attributes, W = 8 programs, k = 100) through
+           ``retrieval_topk_filtered``'s fused path (``filtered_topk``,
+           chained passes) against its dot-scoring path at batch 1 and 512
+           (ids equal outside near-ties, scores within 1e-4, launches
+           counted); fm, wide-deep, dien and dlrm-rm2 forward in f32 at 512
+           and 262,144 rows (finite, the first 64 rows against the CPU at
+           1e-5); greedy bf16 generation (prefill, then decode steps each
+           held to a prefill over the tokens so far) for gemma2-2b (26
+           layers, 2 x 4,608-token prompts, past its 4,096 window) and
+           olmoe-1b-7b (16 layers, 4 x 512) at full depth and qwen1.5-32b,
+           command-r-plus-104b and arctic-480b at full width and cut depth
+           (8, 4 and 1 layers); an f32 gemma2-2b of 2 layers against the
+           CPU at 1e-4; gcn-cora at Cora's size and the molecule cell against
+           the CPU at 1e-5.
 
 Then a ``kernels`` line (each kernel's ``frontend_launches`` over the
-frontend phase's cold and warm pass and its ``sharded_launches`` per
-sharded batch beside its other launch counts), the
+frontend phase's cold and warm pass, its ``sharded_launches`` per sharded
+batch and ``filtered_topk``'s ``models_launches`` per retrieval batch
+beside its other launch counts), the
 card's name and power limit as nvidia-smi reports them, and as the last
 line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -169,6 +186,29 @@ FE_PER_TENANT = 1024   # the burst: 3 x 1024 requests
 FE_COALESCE_MS = 2.0   # the engine's max_wait_ms
 FE_PROBES = 16         # single requests timed for the front-end's overhead
 SHARDS = 4             # sharded phase: model-axis extent of the card mesh
+# models phase: dlrm-rm2's retrieval_cand cell (1M candidates x its
+# embed_dim, k = 100, one W = 8 program a user) at batch 1 and serve_p99's
+# 512; the recsys cells serve_p99 and serve_bulk; greedy LM serving:
+# arch -> (layers, None = all; batch; prompt tokens; decode steps)
+RETR_N, RETR_D, RETR_K, RETR_W = 1_000_000, 64, 100, 8
+RETR_BATCHES = (1, 512)
+RETR_NEAR_TIE = 1e-4   # the JAX package's own score bar
+RS_BATCHES = (512, 262_144)
+RS_CHECK_ROWS = 64
+RS_TOL = GCN_TOL = 1e-5
+LM_SERVE = {"gemma2-2b": (None, 2, 4608, 16),      # past its 4096 window
+            "olmoe-1b-7b": (None, 4, 512, 16),
+            "qwen1.5-32b": (8, 2, 256, 4),          # of 64 layers
+            "command-r-plus-104b": (4, 2, 256, 4),  # of 64 layers
+            "arctic-480b": (1, 2, 256, 4)}          # of 35 (27 GB of experts)
+# bf16 decode against prefill on a model's first layer, relative RMS error
+# of the logits: a wrong position, mask or cache slot gives unrelated
+# logits (~1.4); bf16 rounding of the reference init's large q.k flips
+# near-tied attention weights, so a correct decode sits above 0 too (and
+# across layers the flips compound: see ``lm_serve``)
+LM_DECODE_REL_RMS = 0.25
+LM_F32, LM_F32_LAYERS, LM_F32_PROMPT, LM_F32_TOL = "gemma2-2b", 2, 64, 1e-4
+MODELS_BUDGET_S = 180.0
 
 
 def emit(obj) -> None:
@@ -2624,6 +2664,421 @@ def phase_sharded(dev, saved: Path) -> dict:
             "pq_adc_gather": lines["use_pq+graph_pq"]["sharded"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The models phase: the model zoo at its published widths
+# ---------------------------------------------------------------------------
+def free_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def models_retrieval(dev) -> dict:
+    """dlrm-rm2's ``retrieval_cand`` cell: RETR_N item embeddings of
+    d = RETR_D with the paper schema's attributes, one W = 8 program per
+    user, top RETR_K, at each of RETR_BATCHES users; the fused path
+    (``filtered_topk``, chained passes at k = 100) against the
+    dot-scoring path.  Returns the fused path's launches per batch
+    (counts set to 0 just before its first call, read just after)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as Kn
+    from repro_torch.core import filters as F
+    from repro_torch.core.router import compile_programs
+    from repro_torch.models.recsys import retrieval_topk_filtered
+    from repro_torch.parity import tie_free
+
+    schema = F.paper_schema()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    items = torch.randn(RETR_N, RETR_D, generator=gen, device=dev)
+    at = F.random_attributes(schema, RETR_N, seed=SEED + 1)
+    ai = torch.as_tensor(at.ints, device=dev)
+    af = torch.as_tensor(at.floats, device=dev)
+    launches = {}
+    for b in RETR_BATCHES:
+        users = torch.randn(b, RETR_D, generator=gen, device=dev)
+        flts, names = mixed_filters(F, schema, b)
+        progs = compile_programs(flts, schema, b, device=dev)
+        check(progs["valid"].shape == (b, RETR_W), "retrieval: W = 8 programs")
+        args = (users, items, progs, ai, af)
+        torch.cuda.synchronize()
+        Kn.reset_launch_counts()
+        ids_k, sc_k = retrieval_topk_filtered(*args, k=RETR_K, use_kernel=True)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in Kn.launch_counts.items() if v}
+        launches[f"b{b}"] = counts.get("filtered_topk", 0)
+        check(launches[f"b{b}"] >= 1,
+              f"retrieval b={b}: filtered_topk launched: {counts}")
+        ids_d, sc_d = retrieval_topk_filtered(*args, k=RETR_K + 1)
+        ref_i, ref_s = ids_d.cpu().numpy(), sc_d.cpu().numpy()
+        got_i, got_s = ids_k.cpu().numpy(), sc_k.cpu().numpy()
+        fin = np.isfinite(ref_s[:, :RETR_K])
+        # the dot path names failing items at -inf, the fused path -1
+        free = tie_free(ref_s, rtol=0.0, atol=RETR_NEAR_TIE)[:, :RETR_K] & fin
+        differ = got_i != ref_i[:, :RETR_K]
+        check(np.array_equal(fin, np.isfinite(got_s)),
+              f"retrieval b={b}: the same entries are missing")
+        err = float(np.abs(got_s[fin] - ref_s[:, :RETR_K][fin]).max())
+        check(not (differ & free).any() and err <= RETR_NEAR_TIE,
+              f"retrieval b={b}: {int((differ & free).sum())} ids differ "
+              f"outside near-ties, max |score diff| {err}")
+        ms_kernel = cuda_ms(lambda: retrieval_topk_filtered(
+            *args, k=RETR_K, use_kernel=True), repeats=5, warmup=1)
+        ms_dot = cuda_ms(lambda: retrieval_topk_filtered(*args, k=RETR_K),
+                         repeats=3, warmup=1)
+        emit({"phase": "models", "part": "retrieval", "batch": b,
+              "n": RETR_N, "d": RETR_D, "k": RETR_K, "w": RETR_W,
+              "filters": sorted(set(names)),
+              "launches": counts, "fused_ms": ms_kernel, "dot_ms": ms_dot,
+              "max_abs_score_diff": err,
+              "near_tie_positions": int((fin & ~free).sum()),
+              "near_tie_id_swaps": int((differ & fin & ~free).sum()),
+              "passing_min": int(fin.sum(axis=1).min())})
+        del args, progs, users, ids_k, sc_k, ids_d, sc_d
+    del items, ai, af
+    free_card()
+    return launches
+
+
+def rs_batch(psyn, arch: str, cfg, b: int) -> dict:
+    """A recsys batch of ``b`` rows from the port's ``RecsysPipeline``."""
+    if arch == "dien":
+        pipe = psyn.RecsysPipeline(n_sparse=0, vocab=cfg.vocab, batch=b,
+                                   seq_len=cfg.seq_len, seed=SEED)
+    elif arch == "dlrm-rm2":
+        pipe = psyn.RecsysPipeline(n_sparse=cfg.n_sparse, vocab=cfg.vocab,
+                                   batch=b, n_dense=cfg.n_dense, seed=SEED)
+    else:
+        pipe = psyn.RecsysPipeline(n_sparse=cfg.n_sparse, vocab=cfg.vocab,
+                                   batch=b, seed=SEED)
+    return pipe(0)[0]
+
+
+def models_recsys(dev) -> None:
+    """fm, wide-deep, dien and dlrm-rm2 at their published configs in f32:
+    forward at each of RS_BATCHES rows, finite, the first RS_CHECK_ROWS
+    rows held to the port's CPU run of the same function on a CPU copy of
+    the weights."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.data import synthetic as psyn
+    from repro_torch.models import module as Mm
+    from repro_torch.models import recsys as R
+
+    models = {"fm": (R.FM, ("ids",)), "wide-deep": (R.WideDeep, ("ids",)),
+              "dien": (R.DIEN, ("hist", "target")),
+              "dlrm-rm2": (R.DLRM, ("dense", "ids"))}
+    for arch, (cls, keys) in models.items():
+        cfg = get_spec(arch).config
+        t0 = time.perf_counter()
+        model = cls(cfg, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = model.tree()
+        on_cpu = _tree_cpu(params)
+        line = {"phase": "models", "part": "recsys", "arch": arch,
+                "params": Mm.param_count(params),
+                "param_gb": Mm.param_bytes(params) / 1e9, "init_s": init_s,
+                "batches": {}}
+        for b in RS_BATCHES:
+            batch = rs_batch(psyn, arch, cfg, b)
+            ins = [torch.as_tensor(batch[k], device=dev) for k in keys]
+            torch.cuda.reset_peak_memory_stats()
+            out = model(*ins)
+            torch.cuda.synchronize()
+            check(out.shape == (b,) and bool(torch.isfinite(out).all()),
+                  f"{arch} b={b}: finite logits of shape ({b},)")
+            ref = type(model)._forward(
+                on_cpu, cfg, *[torch.as_tensor(batch[k][:RS_CHECK_ROWS])
+                               for k in keys])
+            err = float((out[:RS_CHECK_ROWS].cpu() - ref).abs().max())
+            check(torch.allclose(out[:RS_CHECK_ROWS].cpu(), ref, rtol=RS_TOL,
+                                 atol=RS_TOL),
+                  f"{arch} b={b}: first {RS_CHECK_ROWS} rows vs CPU, "
+                  f"max |diff| {err}")
+            ms = cuda_ms(lambda: model(*ins), repeats=3, warmup=1)
+            line["batches"][b] = {
+                "ms": ms, "rows_per_s": b / ms * 1e3,
+                "max_abs_diff_vs_cpu": err,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del ins, out
+        emit(line)
+        del model, params, on_cpu
+        free_card()
+
+
+def _tree_cpu(tree):
+    return {k: _tree_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def decode_vs_prefill(params, cfg, seq, s: int, steps: int) -> dict:
+    """Teacher-forced over ``seq`` (B, s + steps): prefill of the first
+    ``s`` tokens, then ``steps`` decode steps, each step's logits against a
+    prefill over the tokens so far.  Per step: the relative RMS error over
+    the vocabulary (all rows, and row by row), max |diff| and the rows
+    whose top-1 token agrees."""
+    from repro_torch.models import transformer as T
+
+    logits, caches = T.prefill(params, cfg, seq[:, :s], s + steps)
+    out = {"rel_rms": [], "rel_rms_by_row": [], "max_abs": [], "top1": 0}
+    for t in range(steps):
+        logits, caches = T.decode_step(params, cfg, seq[:, s + t:s + t + 1],
+                                       caches, s + t)
+        ref, _ = T.prefill(params, cfg, seq[:, :s + t + 1], s + t + 1)
+        diff = logits - ref
+        out["rel_rms"].append(float(diff.norm() / ref.norm()))
+        out["rel_rms_by_row"].append(
+            [round(float(x), 4) for x in diff.norm(dim=-1) / ref.norm(dim=-1)])
+        out["max_abs"].append(float(diff.abs().max()))
+        out["top1"] += int((logits.argmax(-1) == ref.argmax(-1)).sum())
+        del ref
+    out["top1"] = f"{out['top1']}/{seq.shape[0] * steps}"
+    return out
+
+
+def lm_serve(dev, arch: str, layers, b: int, s: int, steps: int) -> dict:
+    """Greedy generation at the published width in bf16 (depth cut to
+    ``layers`` where given): prefill of ``b`` random prompts of ``s``
+    tokens, then ``steps`` decode steps, timed.
+
+    Decode against prefill (``decode_vs_prefill``, teacher-forced on the
+    generated tokens), twice: on the model as served (printed), and on its
+    first layer alone (the same full-width weights; hard, relative RMS at
+    most LM_DECODE_REL_RMS at every step).  Across layers the comparison
+    is chaotic under the reference's init: its attention logits are in the
+    hundreds (``fan_in_init`` reads the head count as the fan-in of a
+    (d, heads, head_dim) weight) and its bf16 einsums round them to steps
+    of 2 or more there, so the ulp-level differences of a one-row and a
+    many-row matmul flip attention weights by e^2 and more, and the flips
+    compound from layer to layer.
+
+    An MoE model's static capacity (capacity_factor 1.25) drops the pairs
+    over it in a long prefill, and a decode of b <= 8 tokens drops none
+    (its capacity is 8 either way), so prefill and decode agree only
+    without drops: the generation runs with the capacity of no dropped
+    pair (capacity_factor = n_experts / top_k, the same decode), and the
+    config's own prefill is timed beside it with its dropped share."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import module as Mm
+    from repro_torch.models import moe as Moe
+    from repro_torch.models import transformer as T
+
+    full = get_spec(arch).config
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    t0 = time.perf_counter()
+    lm = T.LanguageModel(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = lm.tree()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    line = {"phase": "models", "part": "lm", "arch": arch,
+            "layers": cfg.n_layers, "published_layers": full.n_layers,
+            "params": Mm.param_count(params),
+            "param_gb": Mm.param_bytes(params) / 1e9, "init_s": init_s,
+            "batch": b, "prompt": s, "steps": steps}
+    gen_cfg = cfg
+    if cfg.moe is not None:
+        m = cfg.moe
+        gen_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        check(Moe.moe_capacity(b, m) == Moe.moe_capacity(b, gen_cfg.moe) >= b,
+              f"{arch}: a decode step of {b} tokens drops no pair")
+    T.prefill(params, gen_cfg, prompt, s + steps)            # warm-up
+    if cfg.moe is not None:
+        _, aux = T.forward_train(params, cfg, prompt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.prefill(params, cfg, prompt, s + steps)
+        torch.cuda.synchronize()
+        line["config_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        line["config_prefill_dropped_frac"] = float(aux["dropped_frac"])
+        line["generation_capacity_factor"] = gen_cfg.moe.capacity_factor
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = T.prefill(params, gen_cfg, prompt, s + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), f"{arch}: finite prefill logits")
+    seq, step_s = prompt, []
+    for t in range(steps):
+        tok = logits.argmax(-1)[:, None]
+        seq = torch.cat([seq, tok], dim=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = T.decode_step(params, gen_cfg, tok, caches, s + t)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()),
+              f"{arch}: finite logits at decode step {t}")
+    line["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del caches, logits
+    decode_s = sum(step_s)
+    line.update({
+        "prefill_ms": prefill_s * 1e3,
+        "prefill_tokens_per_s": b * s / prefill_s,
+        "decode_ms_per_step": [x * 1e3 for x in step_s],
+        "decode_tokens_per_s": b * steps / decode_s,
+        "decode_vs_prefill": decode_vs_prefill(params, gen_cfg, seq, s,
+                                               steps)})
+    one = {**params, "layers": _first_layer(params["layers"])}
+    line["decode_vs_prefill_layer0"] = decode_vs_prefill(
+        one, dataclasses.replace(gen_cfg, n_layers=1), seq, s, steps)
+    emit(line)
+    worst = max(line["decode_vs_prefill_layer0"]["rel_rms"])
+    check(worst <= LM_DECODE_REL_RMS,
+          f"{arch}: layer-0 decode vs prefill relative RMS {worst}")
+    del lm, params, one, seq
+    free_card()
+    return line
+
+
+def _first_layer(tree: dict) -> dict:
+    """The stacked (L, ...) layer tree cut to its first layer (views)."""
+    return {k: _first_layer(v) if isinstance(v, dict) else v[:1]
+            for k, v in tree.items()}
+
+
+def lm_f32_vs_cpu(dev) -> dict:
+    """An f32 copy of LM_F32's arch at full width and LM_F32_LAYERS layers
+    on a LM_F32_PROMPT-token prompt, TF32 off, against the port's CPU run
+    on the same weights: prefill logits (LM_F32_TOL) and its bf16 caches
+    (LM_F32_TOL plus one bf16 ulp: keys that differ in f32 may round to
+    neighbouring bf16 values), then one decode step from the same caches
+    on both sides (LM_F32_TOL)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_spec(LM_F32).config,
+                              n_layers=LM_F32_LAYERS)
+    lm = T.LanguageModel(cfg, seed=SEED, dtype=torch.float32, device=dev)
+    params = lm.tree()
+    on_cpu = _tree_cpu(params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab, (2, LM_F32_PROMPT), generator=gen,
+                           device=dev)
+    lg, cg = lm.prefill(prompt, LM_F32_PROMPT + 1)
+    lc, cc = T.prefill(on_cpu, cfg, prompt.cpu(), LM_F32_PROMPT + 1)
+    flips, cache_err = 0, 0.0
+    for key in ("k", "v"):
+        a, c = cg[key].float().cpu(), cc[key].float()
+        ulp = torch.exp2(torch.floor(torch.log2(c.abs())) - 7)
+        excess = float(((a - c).abs() - ulp).max())
+        check(excess <= LM_F32_TOL,
+              f"{LM_F32} f32 {key} cache vs CPU: within {LM_F32_TOL} plus "
+              f"one bf16 ulp (excess {excess})")
+        flips += int((a != c).sum())
+        cache_err = max(cache_err, float((a - c).abs().max()))
+    tok = lc.argmax(-1)[:, None]
+    same = {key: v.cpu().clone() for key, v in cg.items()}
+    dg, _ = lm.decode_step(tok.to(dev), cg, LM_F32_PROMPT)
+    dc, _ = T.decode_step(on_cpu, cfg, tok, same, LM_F32_PROMPT)
+    errs = {"prefill": float((lg.cpu() - lc).abs().max()),
+            "decode": float((dg.cpu() - dc).abs().max())}
+    for name, (a, c) in {"prefill": (lg, lc), "decode": (dg, dc)}.items():
+        check(torch.allclose(a.cpu(), c, rtol=LM_F32_TOL, atol=LM_F32_TOL),
+              f"{LM_F32} f32 {name} vs CPU: max |diff| {errs[name]}")
+    line = {"phase": "models", "part": "lm_f32_vs_cpu", "arch": LM_F32,
+            "layers": LM_F32_LAYERS, "prompt": LM_F32_PROMPT,
+            "max_abs_diff": errs, "cache_max_abs_diff": cache_err,
+            "cache_entries_apart": flips,
+            "cache_entries": int(cg["k"].numel() * 2), "tol": LM_F32_TOL}
+    emit(line)
+    del lm, params, on_cpu, cg, cc, same
+    free_card()
+    return line
+
+
+def models_gcn(dev) -> None:
+    """gcn-cora at Cora's size and the molecule cell's block-diagonal batch
+    with a graph readout, each against the port's CPU run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.data import synthetic as psyn
+    from repro_torch.models import gnn as G
+
+    spec = get_spec("gcn-cora")
+    cora, mol = spec.cell("full_graph_sm").meta, spec.cell("molecule").meta
+    cases = {
+        "full_graph_sm": (spec.config, psyn.make_random_graph(
+            cora["n_nodes"], cora["n_edges"] // 2, cora["d_feat"],
+            spec.config.n_classes, seed=SEED), {}),
+        "molecule": (dataclasses.replace(
+            spec.config, d_feat=mol["d_feat"], n_classes=2, readout="graph"),
+            psyn.make_molecule_batch(mol["batch"], mol["n_nodes"],
+                                     mol["n_edges"], mol["d_feat"], seed=SEED),
+            {"n_graphs": mol["batch"]}),
+    }
+    for cell, (cfg, g, kw) in cases.items():
+        model = G.GCN(cfg, seed=SEED, device=dev)
+        keys = ("x", "edges", "deg")
+        ins = [torch.as_tensor(g[k], device=dev) for k in keys]
+        if kw:
+            kw = {**kw, "graph_ids": torch.as_tensor(g["graph_ids"],
+                                                     device=dev)}
+        out = model(*ins, **kw)
+        ref = G.gcn_forward(_tree_cpu(model.tree()), cfg,
+                            *[torch.as_tensor(g[k]) for k in keys],
+                            **{k: (v.cpu() if torch.is_tensor(v) else v)
+                               for k, v in kw.items()})
+        err = float((out.cpu() - ref).abs().max())
+        check(bool(torch.isfinite(out).all()) and torch.allclose(
+            out.cpu(), ref, rtol=GCN_TOL, atol=GCN_TOL),
+            f"gcn {cell}: vs CPU, max |diff| {err}")
+        emit({"phase": "models", "part": "gcn", "cell": cell,
+              "nodes": int(g["x"].shape[0]),
+              "edges_with_self_loops": int(g["edges"].shape[1]),
+              "d_feat": cfg.d_feat, "out": list(out.shape),
+              "max_abs_diff_vs_cpu": err,
+              "ms": cuda_ms(lambda: model(*ins, **kw), repeats=10)})
+
+
+def phase_models(dev) -> dict:
+    """The model zoo at its published widths, random weights from SEED:
+    the recsys retrieval layer on ``filtered_topk`` (dlrm-rm2's
+    retrieval_cand cell at batch 1 and serve_p99's 512), the four recsys
+    models' forward at serve_p99 and serve_bulk, greedy generation through
+    ``prefill`` / ``decode_step`` for the five LMs (bf16; depth cut where
+    one card's memory or the phase's budget needs it) plus an f32 copy of
+    gemma2-2b against the CPU, and gcn-cora's Cora-size and molecule
+    cells.  Returns ``filtered_topk``'s launches per retrieval batch."""
+    t_phase = time.perf_counter()
+    free_card()
+    launches = models_retrieval(dev)
+    models_recsys(dev)
+    for arch, (layers, b, s, steps) in LM_SERVE.items():
+        lm_serve(dev, arch, layers, b, s, steps)
+    lm_f32_vs_cpu(dev)
+    models_gcn(dev)
+    emit({"phase": "models", "part": "done",
+          "phase_s": time.perf_counter() - t_phase,
+          "budget_s": MODELS_BUDGET_S})
+    return launches
+
+
 def refimpl_recall(found, truth_row) -> float:
     from repro_torch.core import refimpl
     return refimpl.recall_at_k(found, truth_row[truth_row >= 0], K)
@@ -2669,6 +3124,7 @@ def main() -> int:
         sharded_launches = phase_sharded(dev, saved)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    models_launches = phase_models(dev)
     # each kernel's launches on the pass of the main path that runs it, and
     # on the serving engine's run that drives it
     main_pass = {"filtered_topk": "f32", "gather_distance": "f32",
@@ -2679,6 +3135,7 @@ def main() -> int:
         kernels[kname]["frontend_launches"] = {
             p: frontend_launches[kname][p][kname] for p in ("cold", "warm")}
         kernels[kname]["sharded_launches"] = sharded_launches[kname][kname]
+    kernels["filtered_topk"]["models_launches"] = models_launches
     emit({"kernels": [{k: v for k, v in row.items() if k != "shape"}
                       for row in kernels.values()]})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""Carry an index built by the JAX package across to the port.
+"""Carry an index built by the JAX package, or a model's parameters, across
+to the port.
 
 The JAX package's FAVOR state is numpy on the host -- the HNSW arrays, the
 attribute table, the schema and, for a quantized index, the codebook and
@@ -6,14 +7,20 @@ the codes -- so it crosses as plain arrays and the port builds its device
 state from them: a JAX-built quantized index serves the same codes and LUTs
 in both packages.  ``FavorIndex.load`` of an index the
 JAX package saved goes through the same function.
+
+A model's parameters cross as their tree: nested dicts of arrays, path for
+path (``params_from_reference``); the model modules' ``named_parameters()``
+are those paths joined by ``.``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core import filters as F
 from .core.favor import FavorIndex
 from .core.hnsw import HnswIndex, HnswParams
+from .device import resolve_device
 from .quant import PQCodebook, SQCodebook
 
 _PARAM_FIELDS = ("M", "M0", "efc", "ml", "alpha", "heuristic", "seed")
@@ -79,3 +86,28 @@ def from_reference_arrays(*, vectors, levels, node_level, entry_point,
                               np.asarray(scale, np.float32), index.dim)
     return FavorIndex(index, attrs, spec, codebook=codebook, codes=codes,
                       device=device)
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                             .view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_reference(tree, *, device=None, dtype=None) -> dict:
+    """The port's parameter tree from the JAX package's: nested dicts of
+    arrays (numpy, or anything ``np.asarray`` reads, bf16 included) to
+    nested dicts of tensors on ``device`` (None = the CUDA device), path for
+    path, each in its own dtype unless ``dtype`` is given."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, dev, dtype)
+
+    return walk(tree)

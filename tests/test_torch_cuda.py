@@ -1211,3 +1211,87 @@ def test_sharded_live_on_card(dev):
     own = router.execute(be, more, true,
                          SearchOptions(k=10, ef=64, force="brute"))
     assert (own.ids[:, 0] == ids2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(1, 100), (37, 100), (64, 10)])
+def test_retrieval_kernel_path_matches_plain(dev, b, k):
+    """``retrieval_topk_filtered(use_kernel=True)`` on the card launches
+    ``filtered_topk`` (k = 100: chained passes) under the constant M^2
+    norms of the MIP -> L2 reduction, over items of very different lengths
+    (the screen's margin takes |v| from the row): the same ids as its plain
+    version on the CPU and as the dot-scoring path on the card outside
+    near-ties (score gap under 1e-4), scores within 1e-4."""
+    from repro_torch.models.recsys import retrieval_topk_filtered
+    from repro_torch.parity import tie_free
+    n, d = 60000, 64
+    rng = np.random.default_rng(b + k)
+    # lengths spread around the unit-normal cell's (M^2 stays near its
+    # ~120: the reduction's score recovery loses ~M^2 * 2^-23)
+    items = (rng.normal(size=(n, d)) *
+             rng.uniform(0.25, 1.25, size=(n, 1))).astype(np.float32)
+    users = rng.normal(size=(b, d)).astype(np.float32)
+    schema = PF.paper_schema()
+    at = PF.random_attributes(schema, n, seed=3)
+    flts = [PF.Range("f0", 0.0, 60.0), PF.TrueFilter(),
+            PF.And(PF.Equality("b0", True), PF.Inclusion("i0", [2, 5, 7]))]
+    progs = compile_programs([flts[i % 3] for i in range(b)], schema, b,
+                             device=dev)
+
+    def args(device):
+        return (torch.as_tensor(users, device=device),
+                torch.as_tensor(items, device=device),
+                {key: v.to(device) for key, v in progs.items()},
+                torch.as_tensor(at.ints, device=device),
+                torch.as_tensor(at.floats, device=device))
+
+    before = K.launch_counts["filtered_topk"]
+    ik, sk = retrieval_topk_filtered(*args(dev), k=k, use_kernel=True)
+    torch.cuda.synchronize()
+    assert K.launch_counts["filtered_topk"] > before
+    ip, sp = retrieval_topk_filtered(*args("cpu"), k=k, use_kernel=True)
+    idot, sdot = retrieval_topk_filtered(*args(dev), k=k + 1)
+    ref_s = sdot.cpu().numpy()
+    free = tie_free(ref_s, rtol=0.0, atol=1e-4)[:, :k]
+    for ids, sc in ((ik.cpu(), sk.cpu()), (ip, sp)):
+        assert (ids.numpy() == idot.cpu().numpy()[:, :k])[free].all()
+        np.testing.assert_allclose(sc.numpy(), ref_s[:, :k], rtol=0,
+                                   atol=1e-4)
+    assert free.mean() > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b", "qwen1.5-32b",
+                                  "command-r-plus-104b", "gemma2-2b"])
+def test_reduced_lm_on_card_matches_cpu(dev, arch):
+    """A reduced LM on the card against the same weights on the CPU, TF32
+    off: ``forward_train`` logits, ``prefill`` logits and caches, a decode
+    step, at 1e-4 (caches: bf16, within one bf16 ulp)."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as PT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_spec(arch).reduced
+    lm_cpu = PT.LanguageModel(cfg, seed=3, device="cpu")
+    lm_gpu = PT.LanguageModel(cfg, seed=0, device=dev)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 12))
+    tc, tg = torch.as_tensor(toks), torch.as_tensor(toks, device=dev)
+
+    def close(a, b, tol=1e-4):
+        np.testing.assert_allclose(b.float().cpu().numpy(),
+                                   a.float().numpy(), rtol=tol, atol=tol)
+
+    close(lm_cpu(tc)[0], lm_gpu(tg)[0])
+    pc, cc = lm_cpu.prefill(tc, 16)
+    pg, cg = lm_gpu.prefill(tg, 16)
+    close(pc, pg)
+    for key in ("k", "v"):
+        a, b = cc[key].float().numpy(), cg[key].float().cpu().numpy()
+        with np.errstate(divide="ignore"):
+            ulp = np.exp2(np.floor(np.log2(np.abs(a))) - 7)
+        assert (np.abs(a - b) <= 1e-5 + ulp).all()
+    nxt = pc.argmax(-1)[:, None]
+    dc, _ = lm_cpu.decode_step(nxt, cc, 12)
+    dg, _ = lm_gpu.decode_step(nxt.to(dev), cg, 12)
+    close(dc, dg)

@@ -1,8 +1,11 @@
 """The port's examples run on the CPU at a small size:
-``examples/quickstart_torch.py`` and ``examples/serve_anns_torch.py`` (one
-ServeEngine over LocalBackend and over a 4-shard ShardedBackend), each with
-``--device cpu``.  Recall bars: the graph and brute routes at the sizes
-here, well below the exact 1.0 only where the graph route runs."""
+``examples/quickstart_torch.py``, ``examples/serve_anns_torch.py`` (one
+ServeEngine over LocalBackend and over a 4-shard ShardedBackend),
+``examples/recsys_retrieval_torch.py`` (the retrieval layer's two paths and
+a graph index) and ``examples/rag_retrieval_torch.py`` (LM embeddings into a
+filtered index), each with ``--device cpu``.  Recall bars: the graph and
+brute routes at the sizes here, well below the exact 1.0 only where the
+graph route runs."""
 import importlib.util
 from pathlib import Path
 
@@ -47,3 +50,19 @@ def test_serve_anns_torch_runs_on_cpu(capsys):
     assert recall["sharded"] >= recall["local"] - 0.1, recall
     out = capsys.readouterr().out
     assert "sharding DB 4-way" in out and "[sharded x4] done: 48" in out
+
+
+def test_recsys_retrieval_torch_runs_on_cpu(capsys):
+    out = _example("recsys_retrieval_torch").main(
+        ["--device", "cpu", "--n", "3000", "--dim", "16", "--k", "20"])
+    assert out["identical_ids"]
+    assert out["kernel_launches"] == 0        # CPU tensors: plain version
+    assert out["graph_recall"] >= 0.8, out
+    assert "FAVOR graph retrieval" in capsys.readouterr().out
+
+
+def test_rag_retrieval_torch_runs_on_cpu(capsys):
+    out = _example("rag_retrieval_torch").main(["--device", "cpu",
+                                                "--n", "1000"])
+    assert out["found"] > 0
+    assert "satisfy the metadata filter" in capsys.readouterr().out
