@@ -109,7 +109,22 @@ no result):
            command-r-plus-104b and arctic-480b at full width and cut depth
            (8, 4 and 1 layers); an f32 gemma2-2b of 2 layers against the
            CPU at 1e-4; gcn-cora at Cora's size and the molecule cell against
-           the CPU at 1e-5.
+           the CPU at 1e-5;
+  train    the port's training (``repro_torch.training``; no kernel is on
+           this path): gemma2-2b at its published width and depth (26
+           layers, d = 2304, vocabulary 256,000) in bf16 with f32 AdamW
+           moments and remat, one 4,096-token sequence a step (train_4k's
+           sequence; its batch of 256 belongs to a pod), TRAIN_STEPS steps
+           on a fixed ``TokenPipeline`` batch: step ms, tokens/s, model
+           TFLOP/s and its share of ``roofline.hw.PEAK_FLOPS_BF16``, peak
+           GB, beside the meta dry run's count of the same step (losses
+           and grad norms finite, the last loss below the first: hard);
+           dlrm-rm2's train_batch (65,536 rows) and gcn-cora's
+           full_graph_sm at full size (ms a step, rows/s, finite losses);
+           the reduced gemma2-2b and dlrm-rm2 in f32 (TF32 off) against the
+           port's CPU run, gradients and 3 SGDM steps within the CPU parity
+           bars; and a checkpoint saved from CUDA tensors, restored onto the
+           card, bit-equal to an uninterrupted run one step on.
 
 Then a ``kernels`` line (each kernel's ``frontend_launches`` over the
 frontend phase's cold and warm pass, its ``sharded_launches`` per sharded
@@ -122,6 +137,7 @@ line
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -209,6 +225,18 @@ LM_SERVE = {"gemma2-2b": (None, 2, 4608, 16),      # past its 4096 window
 LM_DECODE_REL_RMS = 0.25
 LM_F32, LM_F32_LAYERS, LM_F32_PROMPT, LM_F32_TOL = "gemma2-2b", 2, 64, 1e-4
 MODELS_BUDGET_S = 180.0
+# train phase: gemma2-2b at its published width and depth (bf16 params, f32
+# AdamW moments, remat) on one train_4k sequence a step (its global batch of
+# 256 sequences belongs to a 256-chip pod), TRAIN_STEPS steps on one fixed
+# batch; dlrm-rm2's train_batch and gcn-cora's full_graph_sm at full size;
+# the reduced gemma2-2b and dlrm-rm2 in f32 against the CPU; a checkpoint
+# round trip on the card
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "gemma2-2b", 4096, 1, 5
+TRAIN_LR = 1e-3        # bf16 weights of ~0.02 move by ~lr a step, not < ulp
+RS_TRAIN_ARCH, RS_TRAIN_STEPS, GCN_TRAIN_STEPS = "dlrm-rm2", 4, 10
+TRAIN_CPU_STEPS, TRAIN_CPU_LR = 3, 1e-2
+TRAIN_LM_TOL, TRAIN_RS_TOL = 1e-4, 1e-5   # the CPU parity bars
+TRAIN_BUDGET_S = 150.0
 
 
 def emit(obj) -> None:
@@ -3079,6 +3107,346 @@ def phase_models(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The train phase: the port's training at published widths on the card
+# ---------------------------------------------------------------------------
+def _sync_s(fn):
+    """Host seconds of ``fn()`` between two device syncs, and its result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def train_lm_full(dev) -> dict:
+    """TRAIN_ARCH at its published width and depth: bf16 parameters, f32
+    AdamW moments, ``remat`` (each layer recomputed in the backward pass),
+    TRAIN_BATCH x TRAIN_SEQ tokens a step from ``TokenPipeline``, the same
+    batch TRAIN_STEPS times.  Step ms (median of steps 2..), tokens/s, model
+    TFLOP/s (6 N_active tokens / step s) and its share of the bf16 peak,
+    the dry run's meta count of the same step, peak GB.  Hard: every loss
+    and grad norm finite, the last loss below the first."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import synthetic as psyn
+    from repro_torch.launch import cells as LC
+    from repro_torch.launch import dryrun as LD
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import module as Mm
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline import hw
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import make_train_step
+
+    spec = get_spec(TRAIN_ARCH)
+    cfg = spec.config
+    check(cfg.remat and cfg.param_dtype == "bfloat16",
+          f"{TRAIN_ARCH}: the published config trains bf16 with remat")
+    # the dry run's count of this step (batch cut as here) on meta tensors
+    cell = LC.build_lm_cell(spec, ShapeCell(
+        "train_4k", "train", {"seq": TRAIN_SEQ, "batch": TRAIN_BATCH}),
+        make_test_mesh(1, 1))
+    t0 = time.perf_counter()
+    cost, off_meta = LD.count_step(cell.step_fn, cell.args)
+    count_s = time.perf_counter() - t0
+    check(not any(d.startswith("cuda") for d in off_meta)
+          and LD.off_meta_bytes(off_meta) == 0,
+          f"the dry run allocated nothing: {off_meta}")
+    del cell
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    init_s, (params, _) = _sync_s(lambda: Mm.init_with_axes(
+        T.init_lm, SEED, cfg, dtype=torch.bfloat16, device=dev))
+    ocfg = opt.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=100)
+    state = opt.init_opt_state(params, ocfg)
+    batch = psyn.TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               batch=TRAIN_BATCH, seed=SEED)(0)[0]
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    step = make_train_step(
+        lambda p, b: T.lm_loss(p, cfg, b["tokens"], b["labels"]), ocfg)
+    losses, norms, step_s = [], [], []
+    for _ in range(TRAIN_STEPS):
+        dt, (params, state, m) = _sync_s(lambda: step(
+            params, state, {"tokens": tokens, "labels": labels}))
+        step_s.append(dt)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(step_s[1:]) * 1e3
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    model_flops = 6.0 * cfg.active_param_count() * n_tok
+    tflops = model_flops / (ms / 1e3) / 1e12
+    line = {"phase": "train", "part": "lm", "arch": TRAIN_ARCH,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "params": Mm.param_count(params),
+            "param_gb": Mm.param_bytes(params) / 1e9, "dtype": "bfloat16",
+            "moments": "float32 AdamW", "remat": cfg.remat,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+            "init_s": init_s, "steps": TRAIN_STEPS, "loss": losses,
+            "grad_norm": norms, "step_ms": [x * 1e3 for x in step_s],
+            "step_ms_median_2_on": ms, "tokens_per_s": n_tok / (ms / 1e3),
+            "model_tflops_per_s": tflops,
+            "peak_bf16_share": tflops * 1e12 / hw.PEAK_FLOPS_BF16,
+            "peak_gb": peak_gb,
+            "dry_run": {"flops": cost.flops, "bytes": cost.bytes_accessed,
+                        "model_flops": model_flops,
+                        "useful_flops_frac": model_flops / cost.flops,
+                        "t_compute_ms": cost.flops / hw.PEAK_FLOPS_BF16 * 1e3,
+                        "t_memory_ms": cost.bytes_accessed / hw.HBM_BW * 1e3,
+                        "count_s": count_s, "off_meta_ops": off_meta}}
+    line["dry_run"]["measured_over_bound"] = ms / max(
+        line["dry_run"]["t_compute_ms"], line["dry_run"]["t_memory_ms"])
+    emit(line)
+    check(all(map(math.isfinite, losses + norms)),
+          f"{TRAIN_ARCH}: finite losses and grad norms {losses} {norms}")
+    check(losses[-1] < losses[0],
+          f"{TRAIN_ARCH}: the last loss below the first {losses}")
+    del params, state, tokens, labels, step
+    free_card()
+    return line
+
+
+def train_rs_gcn_full(dev) -> dict:
+    """dlrm-rm2's train_batch (65,536 rows, its published tables) and
+    gcn-cora's full_graph_sm (Cora's size) train steps in f32 under the
+    cells' AdamW: ms a step (median after the first) and rows/s, finite
+    losses."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.data import synthetic as psyn
+    from repro_torch.models import gnn as G
+    from repro_torch.models import module as Mm
+    from repro_torch.models import recsys as R
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import make_train_step
+
+    out = {}
+    spec = get_spec(RS_TRAIN_ARCH)
+    cfg = spec.config
+    rows = spec.cell("train_batch").meta["batch"]
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = Mm.init_with_axes(R.init_dlrm, SEED, cfg, device=dev)
+    b = rs_batch(psyn, RS_TRAIN_ARCH, cfg, rows)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    ocfg = opt.OptConfig(total_steps=10000)
+    state = opt.init_opt_state(params, ocfg)
+    step = make_train_step(lambda p, bb: R.dlrm_loss(
+        p, cfg, bb["dense"], bb["ids"], bb["labels"]), ocfg)
+    times, losses = [], []
+    for _ in range(RS_TRAIN_STEPS):
+        dt, (params, state, m) = _sync_s(lambda: step(params, state, batch))
+        times.append(dt)
+        losses.append(float(m["loss"]))
+    ms = statistics.median(times[1:]) * 1e3
+    out[RS_TRAIN_ARCH] = {
+        "cell": "train_batch", "rows": rows,
+        "params": Mm.param_count(params),
+        "param_gb": Mm.param_bytes(params) / 1e9, "loss": losses,
+        "step_ms": [x * 1e3 for x in times], "ms": ms,
+        "rows_per_s": rows / (ms / 1e3),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(all(map(math.isfinite, losses)),
+          f"{RS_TRAIN_ARCH} train_batch: finite losses {losses}")
+    del params, state, batch, step
+    free_card()
+
+    gspec = get_spec("gcn-cora")
+    cora = gspec.cell("full_graph_sm").meta
+    gcfg = dataclasses.replace(gspec.config, d_feat=cora["d_feat"])
+    g = psyn.make_random_graph(cora["n_nodes"], cora["n_edges"] // 2,
+                               cora["d_feat"], gcfg.n_classes, seed=SEED)
+    gb = {k: torch.as_tensor(v, device=dev) for k, v in g.items()}
+    params, _ = Mm.init_with_axes(G.init_gcn, SEED, gcfg, device=dev)
+    ocfg = opt.OptConfig(total_steps=1000)
+    state = opt.init_opt_state(params, ocfg)
+    step = make_train_step(lambda p, bb: G.gcn_loss(
+        p, gcfg, bb["x"], bb["edges"], bb["deg"], bb["labels"], bb["mask"]),
+        ocfg)
+    times, losses = [], []
+    for _ in range(GCN_TRAIN_STEPS):
+        dt, (params, state, m) = _sync_s(lambda: step(params, state, gb))
+        times.append(dt)
+        losses.append(float(m["loss"]))
+    ms = statistics.median(times[1:]) * 1e3
+    out["gcn-cora"] = {"cell": "full_graph_sm", "nodes": cora["n_nodes"],
+                       "edges_with_self_loops": int(g["edges"].shape[1]),
+                       "loss": losses, "ms": ms,
+                       "rows_per_s": cora["n_nodes"] / (ms / 1e3)}
+    check(all(map(math.isfinite, losses)),
+          f"gcn-cora full_graph_sm: finite losses {losses}")
+    emit({"phase": "train", "part": "recsys_gcn", **out})
+    del params, state, gb, step
+    free_card()
+    return out
+
+
+def _max_rel(ref: dict, got: dict) -> dict:
+    """{leaf path: max |got - ref| over max |ref|} (the CPU parity bar's
+    form), ``got`` read to the CPU."""
+    from repro_torch.training.checkpoint import _flatten
+    from repro_torch.training.optimizer import tree_map
+    return _flatten(tree_map(
+        lambda r, g: float((g.cpu().double() - r.double()).abs().max() /
+                           max(float(r.abs().max()), 1e-30)), ref, got))
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """The reduced gemma2-2b and dlrm-rm2 in f32 (TF32 off) on the card and
+    on the CPU from the same weights and batch: each gradient leaf within
+    the CPU parity bar (1e-4 / 1e-5 of the leaf's max |g|), then
+    TRAIN_CPU_STEPS SGDM steps, parameters within 1e-5."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.data import synthetic as psyn
+    from repro_torch.models import module as Mm
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import loss_and_grads, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm = get_spec(TRAIN_ARCH).reduced
+    rs = get_spec(RS_TRAIN_ARCH).reduced
+    cases = {
+        TRAIN_ARCH: (T.init_lm, lm, lambda p, b: T.lm_loss(
+            p, lm, b["tokens"], b["labels"]),
+            psyn.TokenPipeline(vocab=lm.vocab, seq_len=64, batch=4,
+                               seed=SEED)(0)[0], TRAIN_LM_TOL),
+        RS_TRAIN_ARCH: (R.init_dlrm, rs, lambda p, b: R.dlrm_loss(
+            p, rs, b["dense"], b["ids"], b["labels"]),
+            rs_batch(psyn, RS_TRAIN_ARCH, rs, 256), TRAIN_RS_TOL),
+    }
+    out = {}
+    for arch, (init, cfg, loss_fn, batch, tol) in cases.items():
+        cpu_p, _ = Mm.init_with_axes(init, SEED, cfg, device="cpu")
+        card_p = opt.tree_map(lambda t: t.to(dev, copy=True), cpu_p)
+        cpu_b = {k: torch.as_tensor(v) for k, v in batch.items()}
+        card_b = {k: v.to(dev) for k, v in cpu_b.items()}
+        lc, _, gc = loss_and_grads(loss_fn, cpu_p, cpu_b)
+        lg, _, gg = loss_and_grads(loss_fn, card_p, card_b)
+        grad_rel = _max_rel(gc, gg)
+        ocfg = opt.OptConfig(lr=TRAIN_CPU_LR, kind="sgdm", warmup_steps=1,
+                             total_steps=10)
+        step = make_train_step(loss_fn, ocfg)
+        sc, sg = opt.init_opt_state(cpu_p, ocfg), opt.init_opt_state(card_p,
+                                                                      ocfg)
+        losses = []
+        for _ in range(TRAIN_CPU_STEPS):
+            cpu_p, sc, mc = step(cpu_p, sc, cpu_b)
+            card_p, sg, mg = step(card_p, sg, card_b)
+            losses.append((float(mc["loss"]), float(mg["loss"])))
+        # rtol = atol = 1e-5: |card - cpu| - 1e-5 |cpu| at most 1e-5
+        param_err = max(float(((g.cpu() - c).abs() - 1e-5 * c.abs()).max())
+                        for c, g in zip(opt.tree_leaves(cpu_p),
+                                        opt.tree_leaves(card_p)))
+        out[arch] = {"loss_cpu": float(lc), "loss_card": float(lg),
+                     "grad_max_rel": max(grad_rel.values()),
+                     "grad_worst_leaf": max(grad_rel, key=grad_rel.get),
+                     "grad_tol": tol, "sgdm_losses_cpu_card": losses,
+                     "param_abs_err_beyond_rtol": param_err}
+        check(max(grad_rel.values()) <= tol,
+              f"{arch} card vs CPU gradients: {grad_rel}")
+        check(param_err <= 1e-5,
+              f"{arch} card vs CPU after {TRAIN_CPU_STEPS} SGDM steps: "
+              f"excess {param_err}")
+    emit({"phase": "train", "part": "card_vs_cpu", **out})
+    free_card()
+    return out
+
+
+def train_checkpoint_round_trip(dev) -> dict:
+    """The reduced gemma2-2b in f32 under AdamW on the card: two steps, the
+    state saved from CUDA tensors (``training.checkpoint``), restored onto
+    the card, one more step -- bit-equal to three uninterrupted steps
+    (parameters, both moments, the step counter)."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.data import synthetic as psyn
+    from repro_torch.models import module as Mm
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import make_train_step
+
+    cfg = get_spec(TRAIN_ARCH).reduced
+    pipe = psyn.TokenPipeline(vocab=cfg.vocab, seq_len=64, batch=4, seed=SEED)
+    ocfg = opt.OptConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    step = make_train_step(lambda p, b: T.lm_loss(
+        p, cfg, torch.as_tensor(b["tokens"], device=dev),
+        torch.as_tensor(b["labels"], device=dev)), ocfg)
+
+    def fresh():
+        p, _ = Mm.init_with_axes(T.init_lm, SEED, cfg, device=dev)
+        return {"params": p, "opt": opt.init_opt_state(p, ocfg),
+                "data_state": 0}
+
+    def run(state, n):
+        for _ in range(n):
+            batch, state["data_state"] = pipe(state["data_state"])
+            state["params"], state["opt"], _ = step(state["params"],
+                                                    state["opt"], batch)
+        return state
+
+    straight = run(fresh(), 3)
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke-ckpt-", dir=ROOT))
+    try:
+        half = run(fresh(), 2)
+        ckpt.save(str(tmp), 2, half)
+        restored, meta = ckpt.restore(str(tmp),
+                                      shardings=ckpt.device_tree(half))
+        resumed = run(restored, 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a = opt.tree_leaves(straight["params"]) + opt.tree_leaves(
+        straight["opt"].mu) + opt.tree_leaves(straight["opt"].nu)
+    b = opt.tree_leaves(resumed["params"]) + opt.tree_leaves(
+        resumed["opt"].mu) + opt.tree_leaves(resumed["opt"].nu)
+    same = all(x.device == y.device and torch.equal(x, y)
+               for x, y in zip(a, b))
+    line = {"phase": "train", "part": "checkpoint", "arch": TRAIN_ARCH,
+            "config": "reduced f32", "saved_step": meta["step"],
+            "leaves": len(a), "bit_equal": same,
+            "opt_step": int(resumed["opt"].step),
+            "restored_device": str(opt.tree_leaves(
+                restored["params"])[0].device)}
+    emit(line)
+    check(isinstance(resumed["opt"], opt.OptState) and same and
+          int(resumed["opt"].step) == int(straight["opt"].step) == 3,
+          "checkpoint round trip on the card: bit-equal to an "
+          "uninterrupted run")
+    free_card()
+    return line
+
+
+def phase_train(dev) -> dict:
+    """The port's training on the card: TRAIN_ARCH at its published width
+    and depth (bf16, AdamW, remat), dlrm-rm2's train_batch and gcn-cora's
+    full_graph_sm at full size, the reduced gemma2-2b and dlrm-rm2 against
+    the CPU, and a checkpoint round trip.  No kernel of the port is on this
+    path."""
+    t_phase = time.perf_counter()
+    out = {"lm": train_lm_full(dev), "recsys_gcn": train_rs_gcn_full(dev),
+           "card_vs_cpu": train_card_vs_cpu(dev),
+           "checkpoint": train_checkpoint_round_trip(dev)}
+    emit({"phase": "train", "part": "done",
+          "phase_s": time.perf_counter() - t_phase,
+          "budget_s": TRAIN_BUDGET_S})
+    return out
+
+
 def refimpl_recall(found, truth_row) -> float:
     from repro_torch.core import refimpl
     return refimpl.recall_at_k(found, truth_row[truth_row >= 0], K)
@@ -3125,6 +3493,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     models_launches = phase_models(dev)
+    phase_train(dev)
     # each kernel's launches on the pass of the main path that runs it, and
     # on the serving engine's run that drives it
     main_pass = {"filtered_topk": "f32", "gather_distance": "f32",

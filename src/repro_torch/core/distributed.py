@@ -275,12 +275,49 @@ def build_sharded(vectors: np.ndarray, attrs: F.AttributeTable, n_shards: int,
     return sharded
 
 
+def input_specs(n: int, dim: int, m_i: int, m_f: int, n_shards: int, *,
+                m0: int = 32, m: int = 16, n_upper: int = 3,
+                sample_rate: float = 0.01, width: int = 8,
+                batch: int = 4096, dtype=torch.float32) -> dict:
+    """Shape stand-ins for the dry run: the JAX package's keys, shapes and
+    dtypes as ``meta`` tensors (its ``ShapeDtypeStruct``s; nothing is
+    allocated).  The programs' ``imask`` is int64, holding the uint32
+    bitmasks as ``router.compile_programs`` puts them on a device."""
+    ns = n // n_shards
+    sample_n = max(8, int(round(ns * sample_rate)))
+    f32, i32 = dtype, torch.int32
+
+    def sds(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return {
+        "db": {
+            "vectors": sds((n, dim), f32), "norms": sds((n,), f32),
+            "neighbors0": sds((n, m0), i32), "upper": sds((n_upper, n, m), i32),
+            "attrs_int": sds((n, m_i), i32), "attrs_float": sds((n, m_f), f32),
+            "entry": sds((n_shards,), i32),
+            "delta_d": sds((n_shards,), torch.float32),
+            "sample_int": sds((n_shards * sample_n, m_i), i32),
+            "sample_float": sds((n_shards * sample_n, m_f), f32),
+        },
+        "queries": sds((batch, dim), f32),
+        "programs": {
+            "valid": sds((batch, width), torch.float32),
+            "imask": sds((batch, width, m_i), torch.int64),
+            "flo": sds((batch, width, m_f), f32),
+            "fhi": sds((batch, width, m_f), f32),
+        },
+        "valid": sds((batch,), torch.bool),
+    }
+
+
 def place_sharded_db(arrays: dict, mesh: Mesh, specs: dict) -> np.ndarray:
-    """Each mesh cell's slice of ``arrays`` as tensors on the cell's device:
-    a mesh-shaped object array of dicts.  An array is split along every
-    axis its spec names (the cell's coordinate on that mesh axis picks the
-    slice) and copied whole where the spec says None; cells on one device
-    that hold the same slice share one tensor."""
+    """Each mesh cell's slice of ``arrays`` (numpy, or tensors: the dry
+    run's meta stand-ins) as tensors on the cell's device: a mesh-shaped
+    object array of dicts.  An array is split along every axis its spec
+    names (the cell's coordinate on that mesh axis picks the slice) and
+    copied whole where the spec says None; cells on one device that hold
+    the same slice share one tensor."""
     cells = np.empty(mesh.devices.shape, dtype=object)
     placed: dict = {}
     for coord in np.ndindex(*mesh.devices.shape):
@@ -297,8 +334,10 @@ def place_sharded_db(arrays: dict, mesh: Mesh, specs: dict) -> np.ndarray:
                     index.append(slice(at[ax] * part, (at[ax] + 1) * part))
             memo = (str(dev), key, tuple((s.start, s.stop) for s in index))
             if memo not in placed:
-                placed[memo] = torch.as_tensor(
-                    np.ascontiguousarray(a[tuple(index)]), device=dev)
+                piece = a[tuple(index)]
+                placed[memo] = (piece.to(dev) if torch.is_tensor(piece) else
+                                torch.as_tensor(np.ascontiguousarray(piece),
+                                                device=dev))
             cell[key] = placed[memo]
         cells[coord] = cell
     return cells

@@ -5,7 +5,8 @@ An edge-index (2, E) int32 array drives gather -> scale-by-sym-norm ->
 card, so the sum's order -- and its last bits -- may differ from run to
 run).  Edges are padded with (-1, -1) rows (weight 0) so every shape is
 static; degree normalization assumes self-loops were added by the data
-pipeline.
+pipeline.  The forward and the loss build an autograd graph when the
+parameters require grad.
 
 Covers full-graph node classification, sampled subgraphs (the neighbor
 sampler in data/graphs.py produces padded static-shape subgraphs) and
@@ -65,7 +66,6 @@ def _segment_sum(x, seg, n: int):
                        device=x.device).index_add_(0, seg, x)
 
 
-@torch.no_grad()
 def gcn_forward(params, cfg: GCNConfig, x, edges, deg, graph_ids=None,
                 n_graphs: int = 0):
     """x (N, F); edges (2, E) int32 with -1 padding; deg (N,) float
@@ -93,7 +93,6 @@ def gcn_forward(params, cfg: GCNConfig, x, edges, deg, graph_ids=None,
     return h
 
 
-@torch.no_grad()
 def gcn_loss(params, cfg: GCNConfig, x, edges, deg, labels, mask,
              graph_ids=None, n_graphs: int = 0):
     """Masked softmax cross entropy (mask: which nodes/graphs are labeled)."""

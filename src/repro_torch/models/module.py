@@ -13,7 +13,9 @@ drawn from a ``torch.Generator`` on the target device seeded with
 ``fold(seed, n)``, and a child scope's seed is ``fold(seed, crc32(name))``
 -- stable across processes (a ``str`` hash is salted per process).  The
 streams are torch's, not ``jax.random``'s, so parity with the JAX package
-comes from carrying its weights across (``repro_torch.convert``).
+comes from carrying its weights across (``repro_torch.convert``).  On the
+``meta`` device (the dry run's shapes, ``launch/cells.py``) a parameter is
+an empty meta tensor and nothing is drawn: no generator lives there.
 """
 from __future__ import annotations
 
@@ -92,8 +94,12 @@ class Ctx:
               init: Callable | None = None, dtype=None):
         if len(shape) != len(axes):
             raise ValueError(f"{name}: shape {shape} vs axes {axes}")
-        init = init or normal_init()
-        arr = init(self._next_generator(), shape, dtype or self.dtype)
+        if self.device.type == "meta":
+            arr = torch.empty(tuple(shape), dtype=dtype or self.dtype,
+                              device=self.device)
+        else:
+            init = init or normal_init()
+            arr = init(self._next_generator(), shape, dtype or self.dtype)
         self.params[name] = arr
         self.axes[name] = axes
         return arr
@@ -145,6 +151,42 @@ def spec_for_axes(axes: tuple, rules: dict) -> tuple:
     return tuple(rules.get(a, None) if a is not None else None for a in axes)
 
 
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def spec_tree(axes_tree, mesh, rules: dict | None = None):
+    """The axes tree mapped to partition specs on ``mesh``: each leaf's
+    tuple of mesh axes, one entry per dimension (a name, a tuple of names
+    or None), with every axis the mesh lacks dropped -- the port's
+    ``PartitionSpec``, as ``jax.sharding.PartitionSpec`` reads as a
+    tuple."""
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    avail = set(mesh.axis_names)
+
+    def fix(part):
+        if part is None:
+            return None
+        if isinstance(part, tuple):
+            kept = tuple(s for s in part if s in avail)
+            # one axis left reads as its name, as a PartitionSpec reads it
+            return kept if len(kept) > 1 else (kept[0] if kept else None)
+        return part if part in avail else None
+
+    def walk(node):
+        if _is_axes(node):
+            return tuple(fix(s) for s in spec_for_axes(node, rules))
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(axes_tree)
+
+
+# The port has no ``NamedSharding``: a spec names its mesh axes and the
+# caller holds the mesh, so the JAX package's two mappings are one here.
+logical_to_sharding = spec_tree
+
+
 def constrain(x, mesh, *axes, rules: dict | None = None):
     """Sharding constraint by logical axes: the identity off-mesh.  Model
     sharding is not part of the port, so a mesh is refused."""
@@ -176,10 +218,11 @@ def param_bytes(params) -> int:
 # ---------------------------------------------------------------------------
 class ParamModule(nn.Module):
     """An ``nn.Module`` over a nested dict of tensors: each dict becomes a
-    child module, each tensor a parameter (``requires_grad=False``: the
-    model functions serve, they do not train), so ``named_parameters()``
-    are the tree's paths joined by ``.``.  ``tree()`` gives the nested dict
-    back for the model functions."""
+    child module, each tensor a parameter (``requires_grad=False``: a
+    served model builds no autograd graph; the train step,
+    ``training/step.py``, takes its gradients over detached leaves of the
+    tree), so ``named_parameters()`` are the tree's paths joined by ``.``.
+    ``tree()`` gives the nested dict back for the model functions."""
 
     def __init__(self, params: dict):
         super().__init__()

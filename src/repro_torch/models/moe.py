@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 
@@ -96,7 +97,10 @@ def apply_moe(params, x, cfg: MoEConfig):
     flat_p = top_p.reshape(-1).to(x.dtype)
     order = torch.sort(flat_e, stable=True).indices
     se, st, sp = flat_e[order], flat_t[order], flat_p[order]
-    counts = torch.bincount(se, minlength=e)
+    # counts by scatter-add, not bincount: the dry run's meta tensors have
+    # no bincount (its output length depends on the data)
+    counts = torch.zeros((e,), dtype=torch.int64, device=dev).index_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts                # exclusive
     pos = torch.arange(t * k, device=dev) - starts[se]
     keep = pos < c
@@ -130,7 +134,7 @@ def apply_moe(params, x, cfg: MoEConfig):
 
     # 1 - mean(keep) as XLA evaluates it: one rounding of
     # fma(-sum, f32(1/n), 1) (the f64 product of two f32 factors is exact)
-    inv_n = float(torch.tensor(1.0 / keep.numel(), dtype=torch.float32))
+    inv_n = float(np.float32(1.0 / keep.numel()))
     dropped = (1.0 - keep.sum().double() * inv_n).float()
     aux = {"lb_loss": lb_loss, "z_loss": z_loss, "dropped_frac": dropped}
     return y.reshape(orig_shape), aux

@@ -2,7 +2,8 @@
 
 Embedding tables are stacked per-field tables (F, V, d) and lookups are
 gathers, as in the JAX package (uniform per-field vocab keeps shapes
-static).
+static).  The forwards and losses build an autograd graph when the
+parameters require grad; the retrieval layer serves under ``no_grad``.
 
 ``retrieval_cand`` cells use the factorized dot-scoring form (two-tower /
 FM retrieval): a user vector against the item-embedding table, served by
@@ -78,7 +79,6 @@ def init_fm(ctx: Ctx, cfg: FMConfig):
     init_tables(ctx, "v", cfg.n_sparse, cfg.vocab, cfg.embed_dim)
 
 
-@torch.no_grad()
 def fm_forward(params, cfg: FMConfig, ids):
     """ids (B, F) -> logit (B,).  Pairwise interactions via
     0.5 * ((sum_f v_f)^2 - sum_f v_f^2) summed over the latent dim."""
@@ -114,7 +114,6 @@ def init_wide_deep(ctx: Ctx, cfg: WideDeepConfig):
     init_mlp_stack(ctx, "deep_mlp", dims)
 
 
-@torch.no_grad()
 def wide_deep_forward(params, cfg: WideDeepConfig, ids):
     wide = lookup(params["wide"], ids)[..., 0].sum(dim=1)
     e = lookup(params["deep_emb"], ids).reshape(ids.shape[0], -1)
@@ -172,7 +171,6 @@ def init_dien(ctx: Ctx, cfg: DIENConfig):
     init_mlp_stack(ctx, "head", dims)
 
 
-@torch.no_grad()
 def dien_forward(params, cfg: DIENConfig, hist, target):
     """hist (B, S) behavior ids (-1 pad); target (B,) item id -> logit (B,)."""
     b, s = hist.shape
@@ -231,7 +229,6 @@ def init_dlrm(ctx: Ctx, cfg: DLRMConfig):
     init_mlp_stack(ctx, "top", [d_int, *cfg.top_mlp, 1])
 
 
-@torch.no_grad()
 def dlrm_forward(params, cfg: DLRMConfig, dense, ids):
     """dense (B, 13) f32; ids (B, 26) int32 -> logit (B,)."""
     x = apply_mlp_stack(params["bot"], dense, len(cfg.bot_mlp), final_act=True)

@@ -7,9 +7,15 @@ MoE (arctic), tied/untied embeddings.
 
 Layer weights are stacked (L, ...) tensors, as in the JAX package, so its
 parameter tree carries across one to one; the layers run as a Python loop
-that indexes the stacks.  ``remat`` and ``unroll_layers`` stay fields of
-the config (specs compare equal across the packages) and do nothing here:
-the port serves, it does not train.
+over views of the stacks (one ``unbind`` per stack, so a gradient stacks
+the layers' parts once).  ``remat`` wraps each layer of ``forward_train``
+in ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of its
+scanned body): a layer's activations are recomputed in the backward pass
+instead of kept.  ``unroll_layers`` stays a field of the config (specs
+compare equal across the packages) and does nothing here: the loop is
+already unrolled.  ``forward_train`` and ``lm_loss`` build an autograd
+graph when their parameters require grad; ``prefill`` and ``decode_step``
+serve under ``torch.no_grad`` (they write caches in place).
 
 Two quirks of the reference are kept: ``forward_train`` casts the embedded
 activations to the param dtype and ``prefill`` does not, and the KV caches
@@ -21,6 +27,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import AttnConfig, attention_decode, attention_train
 from .layers import apply_mlp, apply_norm, softcap
@@ -54,7 +61,7 @@ class LMConfig:
     embed_scale: bool = False         # x *= sqrt(d_model)
     tie_embeddings: bool = True
     moe: MoEConfig | None = None
-    remat: bool = True                # training only (not ported)
+    remat: bool = True                # recompute each layer in backward
     param_dtype: str = "float32"
     unroll_layers: bool = False       # dry-run only (not ported)
     attn_chunk: int = 0               # >0: flash-style chunked attention
@@ -68,13 +75,15 @@ class LMConfig:
         return AttnConfig(self.d_model, self.n_heads, self.n_kv, self.hd,
                           self.qkv_bias, self.attn_softcap, self.rope_theta)
 
-    def windows(self) -> torch.Tensor:
+    def window_list(self) -> list:
+        """Each layer's sliding window (0 = global)."""
         if self.layer_pattern == "local_global":
-            w = [self.local_window if i % 2 == 0 else 0
-                 for i in range(self.n_layers)]
-        else:
-            w = [self.local_window] * self.n_layers
-        return torch.tensor(w, dtype=torch.int32)
+            return [self.local_window if i % 2 == 0 else 0
+                    for i in range(self.n_layers)]
+        return [self.local_window] * self.n_layers
+
+    def windows(self) -> torch.Tensor:
+        return torch.tensor(self.window_list(), dtype=torch.int32)
 
     def param_count(self) -> int:
         d, ff, v, L = self.d_model, self.d_ff, self.vocab, self.n_layers
@@ -168,16 +177,21 @@ def _norm(cfg, scale, bias, x):
     return apply_norm(p, x, cfg.norm, cfg.norm_eps, gemma_style=cfg.gemma_norm)
 
 
-def _layer_params(tree, i: int):
-    """Layer ``i``'s slice of the stacked (L, ...) layer tree (views)."""
-    return {k: (_layer_params(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+def _unbind_layers(tree, n: int) -> list:
+    """The stacked (L, ...) layer tree as ``n`` per-layer trees (views)."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = (_unbind_layers(v, n) if isinstance(v, dict)
+                 else v.unbind(0))
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
 
 
 def _layers(params, cfg: LMConfig):
     """(layer params, window) for each layer in order."""
-    return [(_layer_params(params["layers"], i), w)
-            for i, w in enumerate(cfg.windows().tolist())]
+    return list(zip(_unbind_layers(params["layers"], cfg.n_layers),
+                    cfg.window_list()))
 
 
 # ---------------------------------------------------------------------------
@@ -235,16 +249,27 @@ def _logits(params, cfg: LMConfig, h):
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
-@torch.no_grad()
+def _train_layer(cfg: LMConfig, lp: dict, h, window: int, mesh):
+    h, aux, _ = _layer(cfg, lp, h, window, mesh)
+    return h, aux
+
+
 def forward_train(params, cfg: LMConfig, tokens, mesh=None):
-    """tokens (B, S) -> logits (B, S, V) f32 + moe aux dict."""
+    """tokens (B, S) -> logits (B, S, V) f32 + moe aux dict.  With
+    ``cfg.remat`` each layer's activations are recomputed in the backward
+    pass (``checkpoint``; the forward values are the same)."""
     h = _embed(params, cfg, tokens).to(
         torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32)
     h = constrain(h, mesh, "batch", "seq", "embed")
     aux = ({"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
            if cfg.moe else {})
     for lp, window in _layers(params, cfg):
-        h, a, _ = _layer(cfg, lp, h, window, mesh)
+        if cfg.remat and torch.is_grad_enabled():
+            # the layers draw no random numbers: no RNG state to replay
+            h, a = checkpoint(_train_layer, cfg, lp, h, window, mesh,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, a = _train_layer(cfg, lp, h, window, mesh)
         if a:
             aux = {k: aux[k] + a[k] for k in aux}
     if cfg.moe:
@@ -252,7 +277,6 @@ def forward_train(params, cfg: LMConfig, tokens, mesh=None):
     return _logits(params, cfg, h), aux
 
 
-@torch.no_grad()
 def lm_loss(params, cfg: LMConfig, tokens, labels, mesh=None,
             lb_coef: float = 0.01, z_coef: float = 1e-3):
     """Next-token cross entropy (labels = tokens shifted by caller; -1 pads)."""

@@ -1295,3 +1295,110 @@ def test_reduced_lm_on_card_matches_cpu(dev, arch):
     dc, _ = lm_cpu.decode_step(nxt, cc, 12)
     dg, _ = lm_gpu.decode_step(nxt.to(dev), cg, 12)
     close(dc, dg)
+
+
+def _train_case(arch):
+    from repro_torch.configs import get_spec
+    from repro_torch.data import synthetic
+    from repro_torch.models import recsys as PR
+    from repro_torch.models import transformer as PT
+    cfg = get_spec(arch).reduced
+    if arch == "dlrm-rm2":
+        batch = synthetic.RecsysPipeline(n_sparse=cfg.n_sparse, vocab=cfg.vocab,
+                                         batch=64, n_dense=cfg.n_dense,
+                                         seed=3)(0)[0]
+        return PR.init_dlrm, cfg, lambda p, b: PR.dlrm_loss(
+            p, cfg, b["dense"], b["ids"], b["labels"]), batch, 1e-5
+    batch = synthetic.TokenPipeline(vocab=cfg.vocab, seq_len=16, batch=4,
+                                    seed=1)(0)[0]
+    return PT.init_lm, cfg, lambda p, b: PT.lm_loss(
+        p, cfg, b["tokens"], b["labels"]), batch, 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "olmoe-1b-7b", "dlrm-rm2"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """Gradients and three SGDM steps of a reduced model on the card
+    against the same weights and batch on the CPU, f32, TF32 off: each
+    gradient leaf within the CPU parity bar of its max |g| (1e-4 LM, 1e-5
+    recsys), parameters within rtol = atol = 1e-5."""
+    from repro_torch.models.module import init_with_axes
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import loss_and_grads, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init, cfg, loss_fn, batch, tol = _train_case(arch)
+    pc, _ = init_with_axes(init, 4, cfg, device="cpu")
+    pg = opt.tree_map(lambda t: t.to(dev, copy=True), pc)
+    bc = {k: torch.as_tensor(v) for k, v in batch.items()}
+    bg = {k: v.to(dev) for k, v in bc.items()}
+    _, _, gc = loss_and_grads(loss_fn, pc, bc)
+    _, _, gg = loss_and_grads(loss_fn, pg, bg)
+    for a, b in zip(opt.tree_leaves(gc), opt.tree_leaves(gg)):
+        assert b.device.type == "cuda"
+        assert float((b.cpu() - a).abs().max()) <= tol * float(a.abs().max())
+    ocfg = opt.OptConfig(lr=1e-2, kind="sgdm", warmup_steps=1, total_steps=10)
+    step = make_train_step(loss_fn, ocfg)
+    sc, sg = opt.init_opt_state(pc, ocfg), opt.init_opt_state(pg, ocfg)
+    for _ in range(3):
+        pc, sc, mc = step(pc, sc, bc)
+        pg, sg, mg = step(pg, sg, bg)
+        assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-5 + 1e-5 * \
+            abs(float(mc["loss"]))
+    for a, b in zip(opt.tree_leaves(pc), opt.tree_leaves(pg)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert sg.mu[next(iter(sg.mu))].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """AdamW state saved from CUDA tensors and restored onto the card (bf16
+    leaves by their bits, OptState as OptState): one more step is bit-equal
+    to an uninterrupted run."""
+    from repro_torch.models.module import init_with_axes
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import make_train_step
+    import dataclasses
+
+    from repro_torch.models import transformer as PT
+    init, cfg, _, batch, _ = _train_case("gemma2-2b")
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16", remat=True)
+
+    def loss_fn(p, b):
+        return PT.lm_loss(p, cfg, b["tokens"], b["labels"])
+    bg = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    ocfg = opt.OptConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    step = make_train_step(loss_fn, ocfg)
+
+    def fresh():
+        p, _ = init_with_axes(init, 5, cfg, dtype=torch.bfloat16, device=dev)
+        return {"params": p, "opt": opt.init_opt_state(p, ocfg), "step": 0}
+
+    def run(state, n):
+        for _ in range(n):
+            state["params"], state["opt"], _ = step(state["params"],
+                                                    state["opt"], bg)
+            state["step"] += 1
+        return state
+
+    straight = run(fresh(), 3)
+    half = run(fresh(), 2)
+    ckpt.save(str(tmp_path), 2, half)
+    back, meta = ckpt.restore(str(tmp_path), shardings=ckpt.device_tree(half))
+    assert meta["step"] == 2 and back["step"] == 2
+    assert isinstance(back["opt"], opt.OptState)
+    leaf = back["params"]["embed"]
+    assert leaf.dtype == torch.bfloat16 and leaf.device.type == "cuda"
+    resumed = run(back, 1)
+    for tree in ("params",):
+        for a, b in zip(opt.tree_leaves(straight[tree]),
+                        opt.tree_leaves(resumed[tree])):
+            assert torch.equal(a, b)
+    for a, b in zip(opt.tree_leaves(straight["opt"].mu) +
+                    opt.tree_leaves(straight["opt"].nu),
+                    opt.tree_leaves(resumed["opt"].mu) +
+                    opt.tree_leaves(resumed["opt"].nu)):
+        assert torch.equal(a, b)
+    assert int(resumed["opt"].step) == 3

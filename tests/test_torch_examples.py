@@ -2,13 +2,16 @@
 ``examples/quickstart_torch.py``, ``examples/serve_anns_torch.py`` (one
 ServeEngine over LocalBackend and over a 4-shard ShardedBackend),
 ``examples/recsys_retrieval_torch.py`` (the retrieval layer's two paths and
-a graph index) and ``examples/rag_retrieval_torch.py`` (LM embeddings into a
-filtered index), each with ``--device cpu``.  Recall bars: the graph and
+a graph index), ``examples/rag_retrieval_torch.py`` (LM embeddings into a
+filtered index) and ``examples/train_lm_torch.py`` (a reduced LM through
+the fault-tolerant loop, then resumed from its checkpoint), each with
+``--device cpu``.  Recall bars: the graph and
 brute routes at the sizes here, well below the exact 1.0 only where the
 graph route runs."""
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -66,3 +69,18 @@ def test_rag_retrieval_torch_runs_on_cpu(capsys):
                                                 "--n", "1000"])
     assert out["found"] > 0
     assert "satisfy the metadata filter" in capsys.readouterr().out
+
+
+def test_train_lm_torch_runs_and_resumes_on_cpu(tmp_path, capsys):
+    ex = _example("train_lm_torch")
+    args = ["--device", "cpu", "--batch", "2", "--seq", "8", "--ckpt",
+            str(tmp_path / "ck")]
+    first = ex.main(args + ["--steps", "51"])     # saves at step 50
+    assert first == {"loss": first["loss"], "step": 51, "resumed": False,
+                     "opt_step": 51}
+    assert np.isfinite(first["loss"])
+    second = ex.main(args + ["--steps", "53"])    # resumes at step 50
+    assert second["resumed"] and second["step"] == 53
+    assert second["opt_step"] == 53                # the optimizer state too
+    out = capsys.readouterr().out
+    assert "resumed from step 50" in out and "final loss" in out

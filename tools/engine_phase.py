@@ -16,7 +16,9 @@ steps and the background merge, each printing its JSON line (with
 front-end), ``--phases sharded`` ``chip_smoke.phase_sharded`` (the
 sharded backend on a (1, 4) mesh of the card over the same rows);
 ``--phases models`` ``chip_smoke.phase_models`` (the model zoo at its
-published widths; it needs no index, so alone it builds none).  It skips
+published widths) and ``--phases train`` ``chip_smoke.phase_train`` (the
+port's training at published widths); these two need no index, so alone
+they build none.  It skips
 the kernel, serve, live and widths phases, so a serving change is measured
 in a third of the smoke test's time.  Exits non-zero when a check fails.
 """
@@ -37,7 +39,8 @@ sys.path.insert(0, str(ROOT / "src"))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+",
-                    choices=("engine", "frontend", "sharded", "models"),
+                    choices=("engine", "frontend", "sharded", "models",
+                             "train"),
                     default=["engine"])
     args = ap.parse_args()
     import torch
@@ -52,9 +55,9 @@ def main() -> int:
         return 2
     cs.emit({"tool": "engine_phase", "nvidia_smi": cs.nvidia_smi_line()})
     Kn.build_kernels()
-    index_phases = [p for p in args.phases if p != "models"]
+    index_phases = [p for p in args.phases if p not in ("models", "train")]
     if not index_phases:
-        return run_models(cs, torch)
+        return run_models(cs, torch, args.phases)
     vecs, attrs, _ = synthetic.make_paper_dataset(cs.SERVE_N, 128,
                                                   seed=cs.SEED)
     spec = BuildSpec(hnsw=HnswParams(M=16, efc=100, seed=cs.SEED),
@@ -78,15 +81,22 @@ def main() -> int:
                      "launches": launches})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return run_models(cs, torch) if "models" in args.phases else 0
+    return run_models(cs, torch, args.phases)
 
 
-def run_models(cs, torch) -> int:
-    t0 = time.perf_counter()
-    launches = cs.phase_models(torch.device("cuda"))
-    cs.emit({"tool": "engine_phase", "phase": "models",
-             "phase_s": time.perf_counter() - t0,
-             "launches": {"filtered_topk": launches}})
+def run_models(cs, torch, phases) -> int:
+    """The phases that need no serve index: models, then train."""
+    if "models" in phases:
+        t0 = time.perf_counter()
+        launches = cs.phase_models(torch.device("cuda"))
+        cs.emit({"tool": "engine_phase", "phase": "models",
+                 "phase_s": time.perf_counter() - t0,
+                 "launches": {"filtered_topk": launches}})
+    if "train" in phases:
+        t0 = time.perf_counter()
+        cs.phase_train(torch.device("cuda"))
+        cs.emit({"tool": "engine_phase", "phase": "train",
+                 "phase_s": time.perf_counter() - t0})
     return 0
 
 
