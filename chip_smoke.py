@@ -45,7 +45,11 @@ no result):
            1,024 deletes, a query batch (no deleted id, brute recall@10
            1.0 against exact ground truth over the live rows, graph recall
            within 0.02 of the f32 pass), ``merge()`` timed, and the batch
-           again; the launches of each kernel for each step;
+           again; the launches of each kernel for each step; then an
+           in-place edit of an attribute column and a scoped
+           ``bump_version(("attributes",))``: the vectors' and neighbour
+           lists' device tensors kept (``data_ptr``), both routes serving
+           the edit, its time beside a full bump's;
   widths   the graph route's two gather kernels at every (B, M) width the
            serve phase launched them at (each pass counts its launches by
            width), on the kernel phase's rows: held to their plain versions
@@ -124,7 +128,17 @@ no result):
            the reduced gemma2-2b and dlrm-rm2 in f32 (TF32 off) against the
            port's CPU run, gradients and 3 SGDM steps within the CPU parity
            bars; and a checkpoint saved from CUDA tensors, restored onto the
-           card, bit-equal to an uninterrupted run one step on.
+           card, bit-equal to an uninterrupted run one step on;
+  dryrun   favor-anns' ``serve_graph`` dry-run cell and its three perf
+           variants (``launch.perf_run``'s favor experiments), each counted
+           on one mesh cell's block of real tensors on the card at the
+           published widths (4M rows x 64 queries; 1M rows for
+           favor_n16m), from the seed: each record ok with waves > 0 and
+           the count's ``gather_distance`` calls equal to the kernel's
+           launches; the counted step's ids and distances equal to an
+           uncounted run's; a small block (the CPU tests' size) counted
+           the same on the card as on the CPU.  Times, waves, the roofline
+           terms, each part's bytes and the peak memory are printed.
 
 Then a ``kernels`` line (each kernel's ``frontend_launches`` over the
 frontend phase's cold and warm pass, its ``sharded_launches`` per sharded
@@ -237,6 +251,7 @@ RS_TRAIN_ARCH, RS_TRAIN_STEPS, GCN_TRAIN_STEPS = "dlrm-rm2", 4, 10
 TRAIN_CPU_STEPS, TRAIN_CPU_LR = 3, 1e-2
 TRAIN_LM_TOL, TRAIN_RS_TOL = 1e-4, 1e-5   # the CPU parity bars
 TRAIN_BUDGET_S = 150.0
+DRYRUN_BUDGET_S = 60.0
 
 
 def emit(obj) -> None:
@@ -1322,9 +1337,58 @@ def phase_live(dev, fi, qs, flts, f32_graph_recall: float):
           rec[br].mean() >= 1.0 - RECALL_SLACK,
           f"live use_pq after merge: brute recall {rec[br].mean()}")
     steps["use_pq_after_merge"] = {"recall_brute": float(rec[br].mean())}
+    steps["scoped_bump"] = live_scoped_bump(fi, qs, flts)
     emit({"phase": "live", "upserts": LIVE_UPSERT, "replaced": LIVE_REPLACE,
           "deletes": LIVE_DELETE, "f32_graph_recall": f32_graph_recall,
           **steps})
+
+
+def live_scoped_bump(fi, qs, flts) -> dict:
+    """On the live phase's merged index: an in-place edit of the int
+    column, then ``bump_version(("attributes",))`` re-uploads only the
+    attribute arrays -- the vectors' and the neighbour lists' device
+    tensors stay (``data_ptr``) -- and both routes serve the edit (every
+    id returned passes its filter under the edited attributes); timed
+    beside a full bump, which re-uploads everything."""
+    import torch
+
+    from repro_torch.core import SearchOptions
+    from repro_torch.core import filters as F
+
+    schema = fi.schema
+    col = schema.int_index("i0")
+    vocab = schema.int_columns[col].vocab
+    keys = ("vectors", "neighbors0", "attrs_int")
+    ptr = {k: fi.g[k].data_ptr() for k in keys}
+    fi.attrs.ints[:, col] = (fi.attrs.ints[:, col] + 1) % vocab
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fi.bump_version(("attributes",))
+    torch.cuda.synchronize()
+    scoped_s = time.perf_counter() - t0
+    kept = {k: fi.g[k].data_ptr() == ptr[k] for k in keys}
+    check(kept == {"vectors": True, "neighbors0": True, "attrs_int": False},
+          f"scoped bump: only the attribute arrays re-uploaded {kept}")
+    masks = [F.eval_program(F.compile_filter(f, schema), fi.attrs.ints,
+                            fi.attrs.floats).numpy() for f in flts]
+    served = {}
+    for force in ("brute", "graph"):
+        res = fi.query(qs, flts, SearchOptions(k=K, ef=EF, force=force))
+        check(all(masks[i][res.ids[i][res.ids[i] >= 0]].all()
+                  for i in range(len(qs))),
+              f"scoped bump: the {force} route serves the edited attributes")
+        served[force] = int((res.ids >= 0).sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fi.bump_version()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    check(fi.g["vectors"].data_ptr() != ptr["vectors"],
+          "a full bump re-uploads the vectors")
+    return {"scoped_attributes_ms": 1e3 * scoped_s,
+            "full_ms": 1e3 * full_s, "kept_data_ptr": kept,
+            "rows": fi.index.n, "ids_served": served,
+            "card": nvidia_smi_line()}
 
 
 def merged_intervals(spans) -> list:
@@ -3447,6 +3511,102 @@ def phase_train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dryrun phase: favor-anns' serve_graph cell counted on the card
+# ---------------------------------------------------------------------------
+def phase_dryrun(dev) -> dict:
+    """favor-anns' ``serve_graph`` cell and its three perf variants
+    (``launch.perf_run``'s favor_sample4k, favor_ccap256, favor_n16m),
+    each counted on one mesh cell's block of real tensors on the card at
+    the published widths (4M rows -- 1M for favor_n16m -- x 64 queries,
+    d = 128, ef = 128) from the seed: record ok, waves > 0, the count's
+    ``gather_distance`` calls > 0 and equal to the kernel's launches in
+    the run (hard); the counted step's ids and distances equal an
+    uncounted run's of the same block (hard); and a small block (the CPU
+    tests' size: 1,024 rows x 4 queries, d = 16), its data drawn on the
+    host, counted the same on the card as on the CPU (hard)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as Kn
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import cells as LC
+    from repro_torch.launch import dryrun as LD
+    from repro_torch.launch import perf_run as LP
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.perf_counter()
+    runs = {"serve_graph": None}
+    runs.update({name: LP.EXPERIMENTS[name]["mk"]() for name in
+                 ("favor_sample4k", "favor_ccap256", "favor_n16m")})
+    out = {}
+    for name, builder in runs.items():
+        free_card()
+        keep = {}
+        Kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = LD.run_cell("favor-anns", "serve_graph", False,
+                          builder=builder, device=dev, seed=SEED, keep=keep)
+        wall = time.perf_counter() - t0
+        launches = Kn.launch_counts["gather_distance"]
+        check(rec["ok"], f"dryrun {name}: {rec.get('error')}")
+        b, r = rec["block"], rec["roofline"]
+        gd = rec["count"]["kernels"].get("gather_distance", {})
+        line = {"phase": "dryrun", "run": name, "wall_s": wall,
+                "make_s": rec["lower_s"], "count_s": rec["compile_s"],
+                "block": b, "launches": dict(Kn.launch_counts),
+                "t_compute_s": r["t_compute_s"],
+                "t_memory_s": r["t_memory_s"], "bottleneck": r["bottleneck"],
+                "flops": r["flops_per_dev"], "bytes": r["hbm_bytes_per_dev"],
+                "count": rec["count"], "note": rec["note"]}
+        check(b["waves"] > 0 and gd.get("calls", 0) > 0
+              and launches == gd["calls"],
+              f"dryrun {name}: waves {b['waves']}, gather_distance counted "
+              f"{gd.get('calls')} against {launches} launches")
+        if name == "serve_graph":
+            block, c = keep["block"], keep["count"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, dists = block.step_fn(*block.args)
+            torch.cuda.synchronize()
+            line["uncounted_step_s"] = time.perf_counter() - t0
+            check(bool(torch.equal(ids, c.out[0])
+                       and torch.equal(dists, c.out[1])),
+                  "dryrun: the counted step's ids and distances equal an "
+                  "uncounted run's")
+            del block, c, ids, dists
+        del keep
+        emit(line)
+        out[name] = line
+
+    spec = get_spec("favor-anns")
+    small = LC.favor_cell(dataclasses.replace(spec.reduced, batch=8),
+                          "serve_graph", "graph", make_test_mesh())
+    card, c_card, _ = LD.count_block(small, dev, SEED, data_device="cpu")
+    cpu, c_cpu, _ = LD.count_block(small, "cpu", SEED)
+    same = (c_card.cost == c_cpu.cost and c_card.kernels == c_cpu.kernels
+            and card["count"]["parts"] == cpu["count"]["parts"]
+            and card["block"]["waves"] == cpu["block"]["waves"])
+    emit({"phase": "dryrun", "run": "small_block_card_vs_cpu",
+          "block": {k: card["block"][k] for k in ("rows", "queries", "waves")},
+          "card": {"flops": c_card.cost.flops,
+                   "bytes": c_card.cost.bytes_accessed,
+                   "parts": card["count"]["parts"]},
+          "cpu": {"flops": c_cpu.cost.flops,
+                  "bytes": c_cpu.cost.bytes_accessed,
+                  "parts": cpu["count"]["parts"],
+                  "waves": cpu["block"]["waves"]},
+          "same": same})
+    check(same, "dryrun: the card's count of the small block equals the "
+          "CPU's")
+    free_card()
+    emit({"phase": "dryrun", "part": "done",
+          "phase_s": time.perf_counter() - t_phase,
+          "budget_s": DRYRUN_BUDGET_S, "card": nvidia_smi_line()})
+    return out
+
+
 def refimpl_recall(found, truth_row) -> float:
     from repro_torch.core import refimpl
     return refimpl.recall_at_k(found, truth_row[truth_row >= 0], K)
@@ -3494,6 +3654,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     models_launches = phase_models(dev)
     phase_train(dev)
+    phase_dryrun(dev)
     # each kernel's launches on the pass of the main path that runs it, and
     # on the serving engine's run that drives it
     main_pass = {"filtered_topk": "f32", "gather_distance": "f32",

@@ -381,6 +381,8 @@ def make_serve_fns(mesh: Mesh, cfg: SearchConfig, *, ef_sel: int | None = None,
                                                     p_hat from the caller
       serve_brute(db, queries, programs, valid)  -> ids (B,k), dists
       serve_brute_pq(db, queries, programs, valid) [quant only] -> ids, dists
+      last_graph                                 -> {"waves", "hops"} of the
+                                                    last cell's traversal
 
     ``db`` is ``place_sharded_db``'s cell array; queries, programs, p_hat
     and ``valid`` lie on the mesh's first device, where the results come
@@ -459,6 +461,8 @@ def make_serve_fns(mesh: Mesh, cfg: SearchConfig, *, ef_sel: int | None = None,
             f"cfg.graph_quant={cfg.graph_quant!r} needs the serve DB built "
             f"with matching attach_quant codes (quant={quant!r})")
 
+    last_graph: dict = {}
+
     def _graph_body(cell, s, queries, programs, p_hat, valid):
         local_g = {
             "vectors": cell["vectors"], "norms": cell["norms"],
@@ -481,6 +485,7 @@ def make_serve_fns(mesh: Mesh, cfg: SearchConfig, *, ef_sel: int | None = None,
                                          k=cfg.k, xp=torch)
         out = favor_graph_search(local_g, queries, programs, D, cfg,
                                  valid=valid)
+        last_graph.update(waves=out["waves"], hops=out["hops"])
         return out["ids"], out["dists"]
 
     def serve_graph_phat(db, queries, programs, p_hat, valid):
@@ -503,6 +508,7 @@ def make_serve_fns(mesh: Mesh, cfg: SearchConfig, *, ef_sel: int | None = None,
 
     fns = {"estimate": estimate, "serve_graph": serve_graph,
            "serve_graph_phat": serve_graph_phat, "serve_brute": serve_brute,
+           "last_graph": last_graph,
            "db_specs": dspecs, "query_spec": (tuple(query_axes), None)}
 
     # -- compressed brute route (quant subsystem, sharded) --------------------

@@ -47,10 +47,17 @@ from .options import BuildSpec, QuantSpec, SearchOptions
 from .router import SearchResult, compile_programs, execute
 from .search import graph_topology
 from ..device import resolve_device
-from ..index.epochs import ComponentEpochs
+from ..index.epochs import COMPONENTS, ComponentEpochs
 from ..index.live import LiveState
 
 __all__ = ["FavorIndex", "SearchResult", "resolve_device"]
+
+# the padded scan arrays (``_pf`` slots) each epoch component owns, and the
+# graph-dict keys that view their first N rows; ``graph`` owns the
+# neighbour arrays (search.graph_topology)
+_COMPONENT_SLOTS = {"vectors": ((0, "vectors"), (1, "norms")),
+                    "attributes": ((2, "attrs_int"), (3, "attrs_float")),
+                    "graph": ()}
 
 _LEGACY_BUILD_KW = ("sel_cfg", "prefbf_chunk", "quantize", "pq_m", "pq_nbits",
                     "pq_train_iters", "pq_train_sample", "rerank")
@@ -160,15 +167,21 @@ class FavorIndex:
         graph route reads the first N rows of the padded scan arrays: one
         copy of the corpus on the device."""
         chunk = min(self.spec.prefbf_chunk, max(256, index.n))
-        padded = prefbf.pad_db(index.vectors, index.norms.astype(np.float32),
-                               attrs.ints, attrs.floats, chunk)
-        pf = tuple(torch.as_tensor(np.ascontiguousarray(a), device=self.device)
-                   for a in padded)
-        n = index.n
+        pf = tuple(self._padded(index, attrs, chunk, s) for s in range(4))
         g = graph_topology(index, self.device)
-        g.update({"vectors": pf[0][:n], "norms": pf[1][:n],
-                  "attrs_int": pf[2][:n], "attrs_float": pf[3][:n]})
+        g.update({key: pf[s][:index.n] for ks in _COMPONENT_SLOTS.values()
+                  for s, key in ks})
         return chunk, pf, g
+
+    def _padded(self, index: HnswIndex, attrs: F.AttributeTable,
+                chunk: int, slot: int) -> torch.Tensor:
+        """Padded scan array ``slot`` (vectors, norms, ints, floats) on the
+        device."""
+        a = (index.vectors, index.norms, attrs.ints, attrs.floats)[slot]
+        if slot == 1:
+            a = a.astype(np.float32)
+        a = prefbf.pad_rows(a, chunk, prefbf.PAD_FILL[slot])
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     def _quantize(self, q, codebook, codes, padded_vectors) -> None:
         """Optional compressed-domain state: the codebook (trained here when
@@ -314,21 +327,29 @@ class FavorIndex:
     def bump_version(self, components: tuple[str, ...] | None = None) -> int:
         """Mark served rows as changed (rebuild, attribute update): the
         epochs of ``components`` (subset of vectors / attributes / graph;
-        None = all) move, and the device arrays are uploaded again from
+        None = all) move, and their device arrays are uploaded again from
         the host arrays, so an in-place edit of ``index`` or ``attrs`` is
-        served from then on."""
-        if components is None:
-            self.epochs.bump_all()
-        else:
-            self.epochs.bump(*components)
-        self.prefbf_chunk, pf, self.g = self._device_arrays(self.index,
-                                                            self.attrs)
-        self._pn0 = pf[1]
-        self._pf = (pf if self._alive is None else
-                    (pf[0], self._masked_norms(pf[1], self._alive), pf[2],
-                     pf[3]))
+        served from then on: a component's padded scan arrays and the graph
+        views over them, or the neighbour arrays.  Every other device
+        tensor is reused; a full bump also re-uploads the ``alive`` mask."""
+        changed = COMPONENTS if components is None else tuple(components)
+        self.epochs.bump(*changed)
+        n = self.index.n
+        pf, g = list(self._pf), dict(self.g)
+        for c in changed:
+            for s, key in _COMPONENT_SLOTS[c]:
+                pf[s] = self._padded(self.index, self.attrs,
+                                     self.prefbf_chunk, s)
+                g[key] = pf[s][:n]
+        if "graph" in changed:
+            g.update(graph_topology(self.index, self.device))
+        if "vectors" in changed:
+            self._pn0 = pf[1]
+            if self._alive is not None:
+                pf[1] = self._masked_norms(pf[1], self._alive)
+        self._pf, self.g = tuple(pf), g
         self._attach_scorer_arrays()
-        if self._alive is not None:
+        if self._alive is not None and components is None:
             self.g["alive"] = torch.as_tensor(self._alive, device=self.device)
         return self.epochs.total
 

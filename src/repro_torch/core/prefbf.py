@@ -15,20 +15,25 @@ import numpy as np
 from ..kernels.filtered_topk import ops as ft_ops
 
 
+# pad_db's fill for each array: vectors, norms, ints, floats
+PAD_FILL = (0, np.inf, -1, np.nan)
+
+
+def pad_rows(a: np.ndarray, chunk: int, fill) -> np.ndarray:
+    """``a`` with rows of ``fill`` appended up to a multiple of ``chunk``
+    (``a`` itself when none are needed)."""
+    pad = (-a.shape[0]) % chunk
+    if pad == 0:
+        return a
+    return np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+
+
 def pad_db(vectors: np.ndarray, norms: np.ndarray, ints: np.ndarray,
            floats: np.ndarray, chunk: int):
     """Pad the DB row count to a multiple of ``chunk``; padded rows get +inf
     norms so their distance is +inf and an all-False filter row."""
-    n = vectors.shape[0]
-    pad = (-n) % chunk
-    if pad == 0:
-        return vectors, norms, ints, floats
-    return (
-        np.concatenate([vectors, np.zeros((pad, vectors.shape[1]), vectors.dtype)]),
-        np.concatenate([norms, np.full((pad,), np.inf, norms.dtype)]),
-        np.concatenate([ints, np.full((pad, ints.shape[1]), -1, ints.dtype)]),
-        np.concatenate([floats, np.full((pad, floats.shape[1]), np.nan, floats.dtype)]),
-    )
+    return tuple(pad_rows(a, chunk, f) for a, f in
+                 zip((vectors, norms, ints, floats), PAD_FILL))
 
 
 def prefbf_topk(vectors, norms, ints, floats, queries, programs, *,

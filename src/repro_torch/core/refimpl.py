@@ -6,6 +6,12 @@ These are the correctness references for the torch/CUDA production path:
                              termination condition (section 5.4).
  * ``rsf_search``         -- Result-Set Filtering baseline (section 2.3.1):
                              identical to HNSW except only TD may enter R.
+ * ``acorn_search``       -- ACORN-esque baseline: the search path extends
+                             only through TD neighbors (distances computed for
+                             TD only), with optional 2-hop expansion when the
+                             1-hop neighborhood has no TD (ACORN-1 style).
+ * ``postfilter_search``  -- vanilla HNSW with inflated ef, filter applied to
+                             the result set afterwards.
  * ``bruteforce_filtered``-- exact ground truth (recall denominators).
 
 All searches return (ids, dists) of the k nearest *target* points, ascending,
@@ -177,6 +183,124 @@ def rsf_search(index: HnswIndex, q: np.ndarray, mask: np.ndarray, k: int,
     pairs = sorted((-nd, u) for nd, u in res)[:k]
     ids = np.asarray([u for _, u in pairs], np.int64)
     ds = np.asarray([d for d, _ in pairs])
+    return ids, ds, stats
+
+
+# ---------------------------------------------------------------------------
+# ACORN-esque predicate-first baseline
+# ---------------------------------------------------------------------------
+def acorn_search(index: HnswIndex, q: np.ndarray, mask: np.ndarray, k: int,
+                 ef: int, *, two_hop: bool = True
+                 ) -> tuple[np.ndarray, np.ndarray, SearchStats]:
+    """Search-path extension restricted to TD; distances computed on TD only.
+
+    Emulates ACORN-1 on a conventional graph: neighbor lists are filtered by
+    the predicate *before* distance computation; if no 1-hop TD neighbor
+    exists, expand to the 2-hop neighborhood (ACORN's neighbor expansion)."""
+    stats = SearchStats()
+    _, ep0 = _descend(index, q, stats)
+
+    # walk to a TD entry if the descent landed on NTD
+    start = None
+    frontier = [ep0]
+    seen = {ep0}
+    for _ in range(64):
+        tds = [u for u in frontier if mask[u]]
+        if tds:
+            start = tds
+            break
+        nxt = []
+        for u in frontier:
+            for w in index.neighbors(u, 0):
+                if w not in seen:
+                    seen.add(w)
+                    nxt.append(w)
+        if not nxt:
+            break
+        frontier = nxt
+    if start is None:
+        return np.empty((0,), np.int64), np.empty((0,)), stats
+
+    ids0 = np.asarray(start, np.int64)
+    ds0 = _dists(index, q, ids0)
+    stats.dist_comps += len(ids0)
+    visited = set(start)
+    cand = [(float(d), int(u)) for d, u in zip(ds0, ids0)]
+    heapq.heapify(cand)
+    res = [(-d, u) for d, u in cand]
+    heapq.heapify(res)
+    while len(res) > ef:
+        heapq.heappop(res)
+
+    while cand:
+        d_a, v_a = heapq.heappop(cand)
+        if len(res) >= ef and d_a > -res[0][0]:
+            stats.terminated_early = True
+            break
+        stats.hops += 1
+        stats.path_td += 1  # path is TD-only by construction
+        nbrs1 = index.neighbors(v_a, 0)
+        td_nbrs = [u for u in nbrs1 if mask[u] and u not in visited]
+        if not td_nbrs and two_hop:
+            for u in nbrs1:
+                for w in index.neighbors(u, 0):
+                    if mask[w] and w not in visited:
+                        td_nbrs.append(int(w))
+        if not td_nbrs:
+            continue
+        visited.update(td_nbrs)
+        ids = np.asarray(td_nbrs, np.int64)
+        ds = _dists(index, q, ids)
+        stats.dist_comps += len(ids)
+        for d, u in zip(ds.tolist(), td_nbrs):
+            if len(res) < ef or d < -res[0][0]:
+                heapq.heappush(cand, (d, u))
+                heapq.heappush(res, (-d, u))
+                if len(res) > ef:
+                    heapq.heappop(res)
+
+    pairs = sorted((-nd, u) for nd, u in res)[:k]
+    ids = np.asarray([u for _, u in pairs], np.int64)
+    ds = np.asarray([d for d, _ in pairs])
+    return ids, ds, stats
+
+
+# ---------------------------------------------------------------------------
+# Post-filtering baseline
+# ---------------------------------------------------------------------------
+def postfilter_search(index: HnswIndex, q: np.ndarray, mask: np.ndarray, k: int,
+                      ef: int) -> tuple[np.ndarray, np.ndarray, SearchStats]:
+    """Vanilla HNSW search with beam ef, filter applied to R afterwards."""
+    stats = SearchStats()
+    _, ep = _descend(index, q, stats)
+    d_ep = float(_dists(index, q, np.asarray([ep]))[0])
+    visited = {ep}
+    cand = [(d_ep, ep)]
+    res = [(-d_ep, ep)]
+    while cand:
+        d_a, v_a = heapq.heappop(cand)
+        if d_a > -res[0][0] and len(res) >= ef:
+            break
+        stats.hops += 1
+        if mask[v_a]:
+            stats.path_td += 1
+        nbrs = [u for u in index.neighbors(v_a, 0) if u not in visited]
+        if not nbrs:
+            continue
+        visited.update(nbrs)
+        ids = np.asarray(nbrs, np.int64)
+        ds = _dists(index, q, ids)
+        stats.dist_comps += len(nbrs)
+        for d, u in zip(ds.tolist(), nbrs):
+            if len(res) < ef or d < -res[0][0]:
+                heapq.heappush(cand, (d, u))
+                heapq.heappush(res, (-d, u))
+                if len(res) > ef:
+                    heapq.heappop(res)
+    pairs = sorted((-nd, u) for nd, u in res)
+    td = [(d, u) for d, u in pairs if mask[u]][:k]
+    ids = np.asarray([u for _, u in td], np.int64)
+    ds = np.asarray([d for d, _ in td])
     return ids, ds, stats
 
 

@@ -33,10 +33,20 @@ the graph route's gather launches by their (B, M) width, and
 step's launches from a concurrent merge's.  All three are updated under a
 lock of their own: serving threads and a background merge launch kernels
 at the same time.
+
+While a dry-run count is active on a thread (``count_kernels``, entered by
+``launch.dryrun.count_step``), each wrapper (``counted``) charges the count
+its call's analytic work -- each input read once, each output written
+once, FLOPs as the kernel table's bounds count them -- and runs with the
+count's dispatch modes off, so its own torch ops (the plain version's, or
+a launch's allocations) are not counted: one cell gives one count on the
+CPU and on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -83,6 +93,46 @@ def count_launch(name: str, width: tuple[int, int] | None = None) -> None:
         if width is not None:
             widths = launch_widths[name]
             widths[width] = widths.get(width, 0) + 1
+
+
+_counting = threading.local()
+
+
+@contextlib.contextmanager
+def count_kernels(charge):
+    """While active on this thread, every ``counted`` wrapper call charges
+    ``charge(name, flops, nbytes)`` its analytic work instead of its own
+    torch ops."""
+    prev = getattr(_counting, "charge", None)
+    _counting.charge = charge
+    try:
+        yield
+    finally:
+        _counting.charge = prev
+
+
+def counted(name: str, work):
+    """Decorator of kernel ``name``'s wrapper: under ``count_kernels`` a
+    call charges ``work(*args, **kwargs)`` -> (FLOPs, bytes) and runs with
+    the current dispatch modes off (a nested wrapper charges nothing)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            charge = getattr(_counting, "charge", None)
+            if charge is None:
+                return fn(*args, **kwargs)
+            from torch.utils._python_dispatch import _disable_current_modes
+            _counting.charge = None
+            try:
+                with _disable_current_modes():
+                    flops, nbytes = work(*args, **kwargs)
+                    out = fn(*args, **kwargs)
+            finally:
+                _counting.charge = charge
+            charge(name, float(flops), float(nbytes))
+            return out
+        return inner
+    return deco
 
 
 def nvcc_path() -> str:

@@ -56,6 +56,30 @@ def check_programs(name: str, programs: dict, b: int, mi: int, mf: int,
     return w
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors given (dicts of tensors included; None
+    skipped): each read once."""
+    out = 0
+    for t in tensors:
+        if isinstance(t, dict):
+            out += nbytes(*t.values())
+        elif isinstance(t, (tuple, list)):
+            out += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            out += t.numel() * t.element_size()
+        elif t is not None:
+            out += int(t.nbytes)
+    return out
+
+
+def n_valid(ids: torch.Tensor) -> int:
+    """The ids >= 0 a call reads rows for: this call's count (a host read),
+    or every id on ``meta``, where values are unknown."""
+    if ids.device.type == "meta":
+        return ids.numel()
+    return int((ids >= 0).sum())
+
+
 ID_DTYPES = (torch.int32, torch.int64)
 
 

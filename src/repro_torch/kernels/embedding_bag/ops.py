@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from .. import _common as C
-from .. import check_status, count_launch, library
+from .. import check_status, count_launch, counted, library
 
 NAME = "embedding_bag"
 MODES = ("sum", "mean")
@@ -44,6 +44,21 @@ def _check(table, bags, mode):
     C.check(NAME, "bags", bags, torch.int32, (None, None), dev)
 
 
+def embedding_bag_work(table, bags, *, mode: str = "sum"):
+    """(FLOPs, bytes) of one call: the ids and every distinct row the valid
+    ids name read once (every id on ``meta``), the bags' rows written once;
+    one add per (valid id, element)."""
+    d = table.shape[1]
+    if bags.device.type == "meta":
+        n = rows = bags.numel()
+    else:
+        ok = bags >= 0
+        n, rows = int(ok.sum()), int(torch.unique(bags[ok]).numel())
+    return n * d, (C.nbytes(bags) + rows * d * table.element_size()
+                   + bags.shape[0] * d * 4)
+
+
+@counted(NAME, embedding_bag_work)
 def embedding_bag(table, bags, *, mode: str = "sum"):
     """EmbeddingBag(table (V, d) f32, bags (B, L) int32 -1-padded) ->
     (B, d) f32.  CPU tensors run ``embedding_bag_plain``; CUDA tensors

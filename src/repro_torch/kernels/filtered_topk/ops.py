@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from .. import _common as C
-from .. import check_status, count_launch, library
+from .. import check_status, count_launch, counted, library
 from ...core import filters as F
 
 NAME = "filtered_topk"
@@ -67,6 +67,19 @@ def _splits(b: int, n: int, sms: int, q_tile: int, tile_rows: int) -> int:
     return max(1, min(sms // q_tiles, -(-n // tile_rows), 65535))
 
 
+def filtered_topk_work(vectors, norms, ints, floats, queries, programs, *,
+                       k: int = 10, dvec=None, exclude: bool = False,
+                       valid=None, after=None, **_):
+    """(FLOPs, bytes) of one call: the DB rows, queries, programs (and D in
+    exclusion mode, the lane mask, the lower bound) read once, k ids and
+    distances a query written once; every pair's d-long dot in f32."""
+    b, d = queries.shape
+    return 2 * b * vectors.shape[0] * d, (
+        C.nbytes(vectors, norms, ints, floats, queries, programs,
+                 dvec if exclude else None, valid, after) + b * k * 8)
+
+
+@counted(NAME, filtered_topk_work)
 def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
                   k: int = 10, dvec=None, exclude: bool = False, valid=None,
                   chunk: int = 8192, after=None, screen_counts=None,

@@ -13,7 +13,7 @@ import ctypes
 import torch
 
 from .. import _common as C
-from .. import check_status, count_launch, library
+from .. import check_status, count_launch, counted, library
 from ...core import filters as F
 
 NAME = "gather_distance"
@@ -29,6 +29,19 @@ def _fn():
     return fn
 
 
+def gather_distance_work(vectors, norms, ints, floats, queries, nbr_ids,
+                         programs, dvec, *, valid=None):
+    """(FLOPs, bytes) of one call: each valid id's row, norm and
+    attributes, the ids, queries, programs, D and lane mask read once, dbar
+    and the TD byte written once; one d-long multiply-add per valid id."""
+    d = queries.shape[1]
+    n = C.n_valid(nbr_ids)
+    row = (d + 1) * 4 + C.nbytes(ints[:1], floats[:1])
+    return 2 * n * d, (C.nbytes(nbr_ids, queries, programs, dvec, valid)
+                       + nbr_ids.numel() * 5 + n * row)
+
+
+@counted(NAME, gather_distance_work)
 def gather_distance(vectors, norms, ints, floats, queries, nbr_ids, programs,
                     dvec, *, valid=None):
     """Graph-expansion distance evaluation.

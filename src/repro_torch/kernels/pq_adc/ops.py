@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from .. import _common as C
-from .. import check_status, count_launch, library
+from .. import check_status, count_launch, counted, library
 from ...core import filters as F
 
 TOPR, GATHER = "pq_adc_topr", "pq_adc_gather"
@@ -104,6 +104,18 @@ def _splits(q_tiles: int, n: int, sms: int, tile: int) -> int:
     return max(range(1, cap + 1), key=lambda s: (fill(s), -s))
 
 
+def pq_adc_topr_work(codes, norms, ints, floats, luts, programs, *,
+                     r: int = 40, valid=None, after=None, **_):
+    """(FLOPs, bytes) of one call: the code rows, norms, attributes, LUTs,
+    programs (the lane mask, the lower bound) read once, R ids and keys a
+    query written once; one table add per (query, row, subspace)."""
+    n, m = codes.shape
+    b = luts.shape[0]
+    return b * n * m, (C.nbytes(codes, norms, ints, floats, luts, programs,
+                                valid, after) + b * r * 8)
+
+
+@counted(TOPR, pq_adc_topr_work)
 def pq_adc_topr(codes, norms, ints, floats, luts, programs, *, r: int = 40,
                 valid=None, chunk: int = 8192, after=None, screen_counts=None,
                 rescore_counts=None):
@@ -228,6 +240,24 @@ def pq_adc_topr_plain(codes, norms, ints, floats, luts, programs, *,
     return C.apply_missing(best_i, best_d, valid)
 
 
+def pq_adc_gather_work(codes, luts, nbr_ids, *, ints=None, floats=None,
+                       programs=None, dvec=None, valid=None):
+    """(FLOPs, bytes) of one call: each valid id's code row, one table entry
+    per lookup (and its attributes in filter mode), the ids, programs, D
+    and lane mask read once, the distances (and TD bytes) written once;
+    one table add per (valid id, subspace)."""
+    m = codes.shape[1]
+    n = C.n_valid(nbr_ids)
+    row = C.nbytes(codes[:1]) + m * luts.element_size()
+    out = 4
+    if programs is not None:
+        row += C.nbytes(ints[:1], floats[:1])
+        out += 1
+    return n * m, (C.nbytes(nbr_ids, programs, dvec, valid)
+                   + nbr_ids.numel() * out + n * row)
+
+
+@counted(GATHER, pq_adc_gather_work)
 def pq_adc_gather(codes, luts, nbr_ids, *, ints=None, floats=None,
                   programs=None, dvec=None, valid=None):
     """Graph-expansion ADC scoring of each query's own neighbour rows.

@@ -2,24 +2,30 @@
 (step_fn, example args as ``meta`` tensors, in_shardings, model_flops), as
 the JAX package's do.
 
-Nothing here allocates: parameters come from the init functions on the
-``meta`` device (``models.module.Ctx`` draws nothing there), the optimizer
-state and the inputs are ``meta`` tensors of the JAX package's shapes and
-dtypes, and the shardings are the port's partition specs
+Building a cell allocates nothing: parameters come from the init functions
+on the ``meta`` device (``models.module.Ctx`` draws nothing there), the
+optimizer state and the inputs are ``meta`` tensors of the JAX package's
+shapes and dtypes, and the shardings are the port's partition specs
 (``models.module.logical_to_sharding``: a tuple of mesh axes per
 dimension, as a ``PartitionSpec`` reads).  ``dryrun.py`` runs each step
 once over them and counts it.  The model functions get ``mesh=None``: the
 port runs a step on one device.
 
-A step whose Python control flow reads device values cannot run on
-``meta`` tensors; ``META_SKIP`` names those cells and why.
+One cell is counted on real tensors instead: favor-anns' ``serve_graph``,
+whose route reads device values to steer its Python loops (the descent's
+``moved.any()``, each wave's count of active queries, lane compaction),
+which ``meta`` tensors cannot answer.  Its ``Cell.block`` makes one mesh
+cell's block -- the per-device program -- on a device, from synthetic data
+(``favor_graph_block``); only then is anything allocated.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..configs import get_spec
@@ -33,13 +39,6 @@ from ..training.step import make_train_step
 from .mesh import batch_axes
 
 F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
-
-META_SKIP = {
-    ("favor-anns", "serve_graph"):
-        "the graph route reads device values to steer its Python loops "
-        "(each shard's entry point, and each wave's count of active "
-        "queries: core/search.py), which meta tensors cannot answer",
-}
 
 
 def sds(shape, dtype) -> torch.Tensor:
@@ -57,6 +56,21 @@ class Cell:
     model_flops: float
     note: str = ""
     donate: tuple = ()
+    # a cell counted on real tensors: block(device, seed, data_device=None)
+    # -> Block, one mesh cell's per-device program (``dryrun.count_block``)
+    block: object = None
+
+
+@dataclass
+class Block:
+    """One mesh cell's block of a cell counted on real tensors: its step
+    (the per-device program), its arguments on the device, what its record
+    states (``info``: rows, queries, ``model_flops`` of the block, ...),
+    and ``facts()`` -> what the record reads after the step ran (waves)."""
+    step_fn: object
+    args: tuple
+    info: dict
+    facts: object
 
 
 def _mesh_axis_size(mesh, name: str) -> int:
@@ -361,25 +375,39 @@ def build_recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
 # FAVOR serve cells (the paper's own system)
 # ---------------------------------------------------------------------------
 def build_favor_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
+    route = cell.meta["route"]
+    return favor_cell(spec.config, cell.name, route, mesh,
+                      note=f"paper serve step ({route} route)")
+
+
+def favor_cell(cfg, shape: str, route: str, mesh, *,
+               sample_rate: float = 0.01, cand_cap: int = 0,
+               note: str = "") -> Cell:
+    """The favor-anns cell of ``route`` at ``cfg``'s sizes: the global
+    DB, queries and programs as ``meta`` stand-ins beside the sharded step
+    (``favor_step``); the graph route also gets its ``block``, one mesh
+    cell counted on real tensors (``favor_graph_block``)."""
     from ..core import distributed as dist
     from ..core.search import SearchConfig
-    cfg = spec.config
     model = _mesh_axis_size(mesh, "model")
     qax = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     specs = dist.input_specs(cfg.n, cfg.dim, cfg.m_i, cfg.m_f, model,
                              m0=cfg.m0, m=cfg.m, n_upper=cfg.n_upper,
-                             width=cfg.width, batch=cfg.batch)
-    scfg = SearchConfig(k=cfg.k, ef=cfg.ef)
-    route = cell.meta["route"]
+                             width=cfg.width, batch=cfg.batch,
+                             sample_rate=sample_rate)
+    scfg = SearchConfig(k=cfg.k, ef=cfg.ef, cand_cap=cand_cap)
     if route == "graph":
         # estimated expansion work: ~4*ef hops x M0 neighbors x 2d flops
         mf = cfg.batch * 4.0 * cfg.ef * cfg.m0 * 2.0 * cfg.dim
+        block = functools.partial(favor_graph_block, cfg, scfg, mesh,
+                                  sample_rate)
     else:
         mf = cfg.batch * cfg.n * 2.0 * cfg.dim
-    return Cell("favor-anns", cell.name, favor_step(mesh, scfg, qax, route),
+        block = None
+    return Cell("favor-anns", shape, favor_step(mesh, scfg, qax, route),
                 (specs["db"], specs["queries"], specs["programs"],
                  specs["valid"]),
-                None, mf, note=f"paper serve step ({route} route)")
+                None, mf, note=note, block=block)
 
 
 def favor_step(mesh, scfg, query_axes, route: str):
@@ -396,13 +424,108 @@ def favor_step(mesh, scfg, query_axes, route: str):
     return step
 
 
+def graph_filter():
+    """The graph cell's stated filter: the paper's inclusion scenario
+    (section 6.1.1, ~30 % of the rows), which the estimate routes to the
+    graph (p_hat above the selector's lambda of 1 %)."""
+    from ..core import filters as F
+    return F.Inclusion("i0", [1, 4, 7])
+
+
+# Delta_d (Eq. 5) of the graph cell's shard: a random graph has no distance
+# curve of its own, so the cell states one
+GRAPH_DELTA_D = 0.02
+
+
+def favor_graph_block(cfg, scfg, mesh, sample_rate: float, device, seed: int,
+                      data_device=None) -> Block:
+    """One mesh cell's block of the favor-anns graph cell on real tensors:
+    the DB shard (``cfg.n`` / model rows) and one data group's queries
+    (``cfg.batch`` / query groups), at ``input_specs``' shapes, run by the
+    per-device program ``make_serve_fns`` gives (the estimate over the
+    shard's sample, the traversal, the shard merge) on a 1 x 1 mesh of
+    ``device``.
+
+    The data is synthetic, drawn from ``seed`` on ``data_device`` (default
+    ``device``) and placed on ``device``: normal vectors and their norms;
+    random neighbour ids of the specs' degrees, without -1, on level 0 and
+    every upper level; attributes in the paper schema's ranges (bool,
+    int of vocab 10, float in [0, 100)); the sample drawn from the rows;
+    ``graph_filter()`` compiled for every query."""
+    from ..core import distributed as dist
+    from ..core import filters as F
+    from ..core.router import compile_programs
+    rows = cfg.n // _mesh_axis_size(mesh, "model")
+    q = cfg.batch // math.prod(_mesh_axis_size(mesh, a)
+                               for a in ("pod", "data"))
+    spec = dist.input_specs(rows, cfg.dim, cfg.m_i, cfg.m_f, 1, m0=cfg.m0,
+                            m=cfg.m, n_upper=cfg.n_upper,
+                            sample_rate=sample_rate, width=cfg.width,
+                            batch=q)["db"]
+    schema = F.paper_schema()
+    if (len(schema.int_columns), len(schema.float_columns)) != (cfg.m_i,
+                                                               cfg.m_f):
+        raise ValueError(f"favor-anns m_i={cfg.m_i}, m_f={cfg.m_f} is not "
+                         "the paper schema's")
+    gdev = torch.device(data_device or device)
+    gen = torch.Generator(device=gdev).manual_seed(seed)
+
+    def ids(shape, high=rows):
+        return torch.randint(0, high, tuple(shape), generator=gen,
+                             device=gdev, dtype=I32)
+
+    vectors = torch.randn(tuple(spec["vectors"].shape), generator=gen,
+                          device=gdev)
+    ints = torch.stack([ids((rows,), c.vocab) for c in schema.int_columns],
+                       dim=1)
+    floats = 100.0 * torch.rand((rows, cfg.m_f), generator=gen, device=gdev)
+    samp = ids((spec["sample_int"].shape[0],)).long()
+    db = {"vectors": vectors, "norms": (vectors * vectors).sum(dim=1),
+          "neighbors0": ids(spec["neighbors0"].shape),
+          "upper": ids(spec["upper"].shape),
+          "attrs_int": ints, "attrs_float": floats, "entry": ids((1,)),
+          "delta_d": torch.full((1,), GRAPH_DELTA_D, device=gdev),
+          "sample_int": ints[samp], "sample_float": floats[samp]}
+    queries = torch.randn((q, cfg.dim), generator=gen, device=gdev)
+    dev = torch.device(device)
+    mesh1 = dist.make_mesh((1, 1), device=dev)
+    fns = dist.make_serve_fns(mesh1, scfg, query_axes=("data",))
+    placed = dist.place_sharded_db(db, mesh1, fns["db_specs"])[0, 0]
+    progs = compile_programs(graph_filter(), schema, q, cfg.width,
+                             device=dev)
+    valid = torch.ones((q,), dtype=torch.bool, device=dev)
+
+    def step(db, queries, programs, valid):
+        cells = np.empty((1, 1), dtype=object)
+        cells[0, 0] = db
+        return fns["serve_graph"](cells, queries, programs, valid)
+
+    def facts() -> dict:
+        """The last run's waves (a batch-wide count) and the estimate."""
+        cells = np.empty((1, 1), dtype=object)
+        cells[0, 0] = placed
+        p_hat = fns["estimate"](cells, progs)
+        waves = int(fns["last_graph"]["waves"][0])
+        return {"waves": waves, "hit_max_steps": waves >= scfg.steps,
+                "p_hat": float(p_hat.mean())}
+
+    info = {"rows": rows, "queries": q, "sample_rows": int(samp.numel()),
+            "dim": cfg.dim, "ef": cfg.ef, "cand_cap": scfg.ccap,
+            "max_steps": scfg.steps, "delta_d": GRAPH_DELTA_D,
+            "filter": "Inclusion('i0', [1, 4, 7])",
+            # the cell's formula at the block's queries: one traversal a
+            # query on its shard
+            "model_flops": q * 4.0 * cfg.ef * cfg.m0 * 2.0 * cfg.dim}
+    return Block(step, (placed, queries.to(dev), progs, valid), info, facts)
+
+
 BUILDERS = {"lm": build_lm_cell, "gnn": build_gnn_cell,
             "recsys": build_recsys_cell, "favor": build_favor_cell}
 
 
 def skip_reason(arch: str, shape: str) -> str | None:
-    """Why a cell does not run: the registry's reason, else the dry run's."""
-    return get_spec(arch).cell(shape).skip or META_SKIP.get((arch, shape))
+    """Why a cell does not run: the registry's reason."""
+    return get_spec(arch).cell(shape).skip
 
 
 def build_cell(arch: str, shape: str, mesh) -> Cell:

@@ -10,10 +10,9 @@ alone (no depth probes).
 Variants:
   lm:    chunked attention (attn_chunk), microbatch accumulation, remat off
   gnn:   bf16 message features, label-pruned final layer
-
-The JAX package's favor-anns variants (selectivity-sample sizing,
-candidate-pool width) vary the ``serve_graph`` cell, which the meta dry
-run cannot run (``cells.META_SKIP``), so the port has no builder for them.
+  favor: selectivity-sample sizing, candidate-pool width, batch, DB size
+         (the ``serve_graph`` cell is counted on one mesh cell's real
+         tensors: ``cells.favor_graph_block``)
 """
 from __future__ import annotations
 
@@ -159,3 +158,27 @@ def gnn_loss_opt(params, cfg, batch, *, bf16_msgs: bool, n_labeled: int,
     loss = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
     return loss, {"ce_loss": loss}
 
+
+
+# ---------------------------------------------------------------------------
+# FAVOR variants
+# ---------------------------------------------------------------------------
+def favor_variant(arch: str, shape: str, *, sample_rate: float = 0.01,
+                  cand_cap: int = 0, batch: int = 0, n: int = 0):
+    """``sample_rate``: the selectivity sample's share of each shard's rows
+    (``input_specs``); ``cand_cap``: the candidate pool's capacity
+    (``SearchConfig.cand_cap``, 0 = ef); ``batch`` and ``n`` replace the
+    config's serve batch and DB rows (0 keeps them)."""
+    def build(arch_, shape_, mesh):
+        spec = get_spec("favor-anns")
+        cfg = spec.config
+        if batch:
+            cfg = dataclasses.replace(cfg, batch=batch)
+        if n:
+            cfg = dataclasses.replace(cfg, n=n)
+        return C.favor_cell(
+            cfg, shape_, spec.cell(shape_).meta["route"], mesh,
+            sample_rate=sample_rate, cand_cap=cand_cap,
+            note=f"sample_rate={sample_rate} ccap={cand_cap} b={batch}")
+
+    return build

@@ -2,22 +2,20 @@
 append each record to perf_results.json.
 
     PYTHONPATH=src python -m repro_torch.launch.perf_run [--exp NAME|all]
-        [--out perf_results.json] [--multi]
+        [--out perf_results.json] [--multi] [--device cuda|cpu] [--seed 0]
 
 The experiments and their hypotheses are the JAX package's, copied
 unchanged: the hypotheses were written about TPU dry runs, and no number
 in them is the H100's.  The port's count has no collective term, so the
 gcn experiments read only the compute and memory terms.  The three
-favor-anns ``serve_graph`` experiments have no builder: the meta dry run
-cannot run that cell (``cells.META_SKIP``), so each is recorded as skipped
-with the reason.
+favor-anns ``serve_graph`` experiments count one mesh cell's block on real
+tensors, on ``--device`` (the card unless ``cpu`` is given).
 """
 import argparse
 import json
 import os
 import time
 
-from repro_torch.launch import cells as C
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import perf as P
 
@@ -68,12 +66,16 @@ EXPERIMENTS = {
     # --- hillclimb 3: favor-anns serve_graph (paper's own technique) --------
     "favor_sample4k": dict(
         arch="favor-anns", shape="serve_graph",
+        mk=lambda: P.favor_variant("favor-anns", "serve_graph",
+                                   sample_rate=0.001),
         hypothesis="selectivity sample 1% -> 0.1% of shard rows (global n "
                     "~64k, rel-err ~4% at p=1%, Eq. 1): the batched "
                     "filter-program eval over the sample shrinks 10x; if the "
                     "memory term drops materially, estimation was the hog"),
     "favor_ccap256": dict(
         arch="favor-anns", shape="serve_graph",
+        mk=lambda: P.favor_variant("favor-anns", "serve_graph",
+                                   sample_rate=0.001, cand_cap=256),
         hypothesis="wider candidate pool (256 vs ef=128) raises per-step "
                    "merge traffic but should be minor vs visited/sample"),
     # diagnostic: if tm scales with the DB shard size, the memory term is an
@@ -81,6 +83,7 @@ EXPERIMENTS = {
     # real per-step traffic
     "favor_n16m": dict(
         arch="favor-anns", shape="serve_graph",
+        mk=lambda: P.favor_variant("favor-anns", "serve_graph", n=16_000_000),
         hypothesis="shrink the DB 4x: if t_memory drops ~4x the term is "
                    "dominated by whole-DB-array charges on gathers (cost-"
                    "model artifact), not by batch/step-proportional traffic"),
@@ -100,6 +103,10 @@ def main():
     ap.add_argument("--exp", default=None, help="experiment name or 'all'")
     ap.add_argument("--out", default="perf_results.json")
     ap.add_argument("--multi", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="where a cell counted on real tensors runs "
+                         "(default: the card)")
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     results = []
@@ -114,20 +121,14 @@ def main():
             print(f"[skip-done] {name}")
             continue
         print(f"[perf] {name}: {e['hypothesis'][:70]} ...", flush=True)
-        skip = C.META_SKIP.get((e["arch"], e["shape"]))
         t0 = time.perf_counter()
-        if skip:
-            rec = {"arch": e["arch"], "shape": e["shape"], "ok": True,
-                   "skipped": skip}
-        else:
-            rec = D.run_cell(e["arch"], e["shape"], args.multi,
-                             builder=e["mk"]())
+        rec = D.run_cell(e["arch"], e["shape"], args.multi,
+                         builder=e["mk"](), device=args.device,
+                         seed=args.seed)
         rec["exp"] = name
         rec["hypothesis"] = e["hypothesis"]
         rec["wall_s"] = time.perf_counter() - t0
-        if rec.get("skipped"):
-            print(f"   SKIP {skip}", flush=True)
-        elif rec["ok"]:
+        if rec["ok"]:
             r = rec["roofline"]
             print(f"   ok tc={r['t_compute_s']:.4f} tm={r['t_memory_s']:.4f} "
                   f"tx={r['t_collective_s']:.4f} bottleneck={r['bottleneck']} "

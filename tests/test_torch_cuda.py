@@ -1402,3 +1402,55 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
                     opt.tree_leaves(resumed["opt"].nu)):
         assert torch.equal(a, b)
     assert int(resumed["opt"].step) == 3
+
+
+@pytest.mark.cuda
+def test_scoped_bump_on_card_keeps_the_other_tensors(dev):
+    """A scoped attribute bump on the card re-uploads the attribute arrays
+    alone and serves an in-place edit on both routes."""
+    from repro_torch.core import FavorIndex, HnswParams, SearchOptions
+    rng = np.random.default_rng(5)
+    vecs = rng.normal(size=(1500, 16)).astype(np.float32)
+    attrs = PF.random_attributes(PF.paper_schema(), 1500, seed=2)
+    fi = FavorIndex.build(vecs, attrs, HnswParams(M=8, efc=32), device=dev)
+    keep = {k: fi.g[k].data_ptr() for k in ("vectors", "norms", "neighbors0")}
+    ai = fi.g["attrs_int"].data_ptr()
+    col = fi.schema.int_index("i0")
+    fi.attrs.ints[:, col] = (fi.attrs.ints[:, col] + 1) % 10
+    fi.bump_version(("attributes",))
+    assert {k: fi.g[k].data_ptr() for k in keep} == keep
+    assert fi.g["attrs_int"].data_ptr() not in (ai, *keep.values())
+    assert fi.g["attrs_int"].data_ptr() == fi._pf[2].data_ptr()
+    flt = PF.Equality("i0", 3)
+    passes = fi.attrs.ints[:, col] == 3
+    qs = rng.normal(size=(8, 16)).astype(np.float32)
+    for force in ("brute", "graph"):
+        res = fi.query(qs, flt, SearchOptions(k=10, ef=48, force=force))
+        got = res.ids[res.ids >= 0]
+        assert got.size and passes[got].all(), force
+
+
+@pytest.mark.cuda
+def test_graph_block_count_on_card_equals_cpu(dev):
+    """favor-anns' serve_graph block at the CPU tests' size, its data drawn
+    on the host: the card's count (kernel launches charged analytically)
+    equals the CPU's (plain versions charged the same), and the kernel
+    launched once per counted call."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import cells as LC
+    from repro_torch.launch import dryrun as LD
+    from repro_torch.launch.mesh import make_test_mesh
+    red = dataclasses.replace(get_spec("favor-anns").reduced, batch=8)
+    cell = LC.favor_cell(red, "serve_graph", "graph", make_test_mesh())
+    K.reset_launch_counts()
+    card, c_card, _ = LD.count_block(cell, dev, 0, data_device="cpu")
+    launches = K.launch_counts["gather_distance"]
+    cpu, c_cpu, _ = LD.count_block(cell, "cpu", 0)
+    assert c_card.cost == c_cpu.cost and c_card.kernels == c_cpu.kernels
+    assert card["count"]["parts"] == cpu["count"]["parts"]
+    assert card["block"]["waves"] == cpu["block"]["waves"] > 0
+    assert launches == c_card.kernels["gather_distance"]["calls"]
+    assert card["block"]["peak_memory_bytes"] > 0
+    assert torch.equal(c_card.out[0].cpu(), c_cpu.out[0])

@@ -187,3 +187,46 @@ def test_estimate_batched_identical():
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(p_sel.route(got, 0.01),
                                   r_sel.route(want, 0.01))
+
+
+@pytest.fixture(scope="module")
+def baseline_graphs():
+    """Each package's own HNSW over the same rows and params (pinned
+    identical by test_build_hnsw_identical)."""
+    rng = np.random.default_rng(12)
+    vecs = rng.normal(size=(1200, 12)).astype(np.float32)
+    ri = r_hnsw.build_hnsw(vecs, r_hnsw.HnswParams(M=8, efc=40, seed=3))
+    pi = p_hnsw.build_hnsw(vecs, p_hnsw.HnswParams(M=8, efc=40, seed=3))
+    return ri, pi, rng.normal(size=(6, 12)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["acorn-two_hop", "acorn-one_hop",
+                                  "postfilter"])
+def test_baseline_search_identical(baseline_graphs, kind):
+    """The ACORN-1-style and post-filter baselines give the reference's
+    ids, dists and SearchStats, exactly, at about 1 %, 10 % and 50 %
+    selectivity."""
+    import dataclasses
+    from repro.core import refimpl as r_ref
+    from repro_torch.core import refimpl as p_ref
+    ri, pi, qs = baseline_graphs
+    rng = np.random.default_rng(31)
+    found = {}
+    for sel in (0.01, 0.1, 0.5):
+        mask = rng.random(ri.n) < sel
+        found[sel] = 0
+        for q in qs:
+            if kind == "postfilter":
+                want = r_ref.postfilter_search(ri, q, mask, 10, 48)
+                got = p_ref.postfilter_search(pi, q, mask, 10, 48)
+            else:
+                two = kind == "acorn-two_hop"
+                want = r_ref.acorn_search(ri, q, mask, 10, 48, two_hop=two)
+                got = p_ref.acorn_search(pi, q, mask, 10, 48, two_hop=two)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+            assert got[1].dtype == want[1].dtype
+            assert dataclasses.asdict(got[2]) == dataclasses.asdict(want[2])
+            found[sel] += len(want[0])
+    # a post-filtered beam of 48 may hold no target at 1 %
+    assert found[0.1] > 0 and found[0.5] > 0, found

@@ -98,16 +98,19 @@ def _port(ref, **kw):
         norms=idx.norms, spec=spec, device="cpu", **arrays, **kw)
 
 
+def _ref(built, attrs, kind=None, codebooks=None):
+    """A JAX index over the built graph and ``attrs``."""
+    if kind is None:
+        return RIndex(built.index, attrs)
+    src = codebooks[kind]
+    return RIndex(built.index, attrs, RBuild(quant=RQuant(**QUANT[kind])),
+                  codebook=src.codebook,
+                  codes=np.asarray(src._codes)[:built.index.n])
+
+
 def _pair(built, ds, kind=None, codebooks=None):
     """Fresh (JAX, port) indexes over the built graph."""
-    _, attrs = ds
-    if kind is None:
-        ref = RIndex(built.index, attrs)
-    else:
-        src = codebooks[kind]
-        ref = RIndex(built.index, attrs, RBuild(quant=RQuant(**QUANT[kind])),
-                     codebook=src.codebook,
-                     codes=np.asarray(src._codes)[:built.index.n])
+    ref = _ref(built, ds[1], kind, codebooks)
     return ref, _port(ref)
 
 
@@ -328,6 +331,84 @@ def test_scoped_epochs_and_no_graph_reupload(built, ds):
                                        "graph": 1}
     assert _both(pair, "version") == 4
 
+
+
+@pytest.mark.parametrize("kind", [None, "pq"])
+def test_scoped_bump_reuploads_only_its_component(built, ds, codebooks,
+                                                  kind):
+    """The scoped half of the JAX package's re-upload test: a component
+    bump re-uploads only that component's device tensors (the padded scan
+    arrays and the graph views over them), reuses the rest, and serves an
+    in-place edit on both routes with the JAX package's ids; a ``vectors``
+    bump keeps the PQ codes aligned; a full bump re-uploads everything."""
+    vecs, attrs = ds
+    own = RF.AttributeTable(attrs.schema, attrs.ints.copy(),
+                            attrs.floats.copy())
+    pair = _pair(built, (vecs, own), kind, codebooks)
+    ref, port = pair
+    over = {} if kind is None else {"use_pq": True}
+    q = np.random.default_rng(47).normal(size=(6, 16)).astype(np.float32)
+    assert _both(pair, "delete", [0]) == 1
+
+    def same_results():
+        # the JAX package's bump_version never re-uploads its padded scan
+        # arrays (ROADMAP.md section 3), so the brute route is held to a
+        # JAX index built on the current attributes
+        fresh = _ref(built, RF.AttributeTable(
+            own.schema, own.ints.copy(), own.floats.copy()), kind, codebooks)
+        fresh.delete([0])
+        out = {}
+        for force, r_side in (("graph", ref), ("brute", fresh)):
+            r, p = _run((r_side, port), q, force, **over)
+            _assert_same(r, p, f"{force} {over}")
+            assert 0 not in p.ids
+            out[force] = p.ids
+        return out
+
+    before = same_results()
+    g0, pf0 = dict(port.g), port._pf
+    col = own.schema.int_index("i0")
+    edited = (own.ints[:, col] + 1) % 5
+    for side in pair:
+        side.attrs.ints[:, col] = edited
+    assert _both(pair, "bump_version", ("attributes",)) == 2
+    for key in ("vectors", "norms", "neighbors0", "upper", "alive"):
+        assert port.g[key] is g0[key], key
+    assert port._pf[0] is pf0[0] and port._pf[1] is pf0[1]
+    assert port._pf[2] is not pf0[2] and port.g["attrs_int"] is not g0[
+        "attrs_int"]
+    np.testing.assert_array_equal(port.g["attrs_int"].numpy(),
+                                  port.attrs.ints)
+    assert port.g["attrs_int"].data_ptr() == port._pf[2].data_ptr()
+    after = same_results()
+    for force in ("graph", "brute"):   # the edit is served
+        assert not np.array_equal(after[force], before[force]), force
+
+    g1, pf1 = dict(port.g), port._pf
+    _both(pair, "bump_version", ("vectors",))
+    assert port.g["vectors"] is not g1["vectors"]
+    assert port._pf[0] is not pf1[0] and port._pf[1] is not pf1[1]
+    for key in ("attrs_int", "attrs_float", "neighbors0", "alive"):
+        assert port.g[key] is g1[key], key
+    assert port._pf[2] is pf1[2] and port._pf[3] is pf1[3]
+    assert torch.isinf(port._pf[1][0]) and torch.isfinite(port._pn0[0])
+    if kind is not None:   # the codes stay aligned with the graph arrays
+        np.testing.assert_array_equal(port.g["codes"].numpy(),
+                                      np.asarray(ref.g["codes"]))
+    for force, ids in same_results().items():
+        np.testing.assert_array_equal(ids, after[force])
+
+    g2, pf2 = dict(port.g), port._pf
+    _both(pair, "bump_version")
+    for key in ("vectors", "norms", "attrs_int", "attrs_float",
+                "neighbors0", "upper", "alive"):
+        assert port.g[key] is not g2[key], key
+    assert all(a is not b for a, b in zip(port._pf, pf2))
+    assert _both(pair, "versions") == {"vectors": 3, "attributes": 2,
+                                       "graph": 1}
+    same_results()
+    with pytest.raises(ValueError, match="unknown epoch component"):
+        port.bump_version(("bogus",))
 
 def _same_graph(p: HnswIndex, r):
     assert p.n == r.n and p.max_level == r.max_level

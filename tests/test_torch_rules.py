@@ -231,3 +231,119 @@ def test_unported_options_raise():
         assert np.array_equal(r.ids, base.ids)
     assert cb.cache_stats()["semantic"]["hits"] == 2
 
+
+
+# The JAX package's public names with no port counterpart of the same name,
+# each with where it went or why it stays out ("module:name", the module's
+# path under src/repro).
+RENAMED = {
+    "core/distributed.py:device_put_sharded_db":
+        "core/distributed.py place_sharded_db: each mesh cell's slice on "
+        "the cell's torch device",
+    "core/prefbf.py:INF": "core/search.py INF, the port's one +inf",
+    "core/scoring.py:GRAPH_QUANT_KINDS": "core/options.py GRAPH_QUANT",
+    "core/scoring.py:pairwise_dist":
+        "folded into kernels/gather_distance/ops.py gather_distance_plain",
+    "core/search.py:refresh_graph_arrays":
+        "core/favor.py FavorIndex.bump_version: the graph arrays view the "
+        "index's padded scan arrays, so the index re-uploads a bumped "
+        "component's both",
+    "kernels/__init__.py:default_interpret":
+        "none: the tensors' device picks the kernel (CUDA) or its plain "
+        "version (CPU)",
+    "launch/cells.py:SDS": "launch/cells.py sds",
+    "launch/cells.py:probe_depths":
+        "none, by design: the count runs every layer (a Python loop, not a "
+        "scan counted once), so it needs no depth probes",
+    "launch/cells.py:build_probe_cell": "none, by design: as probe_depths",
+    "roofline/report.py:collective_summary":
+        "left out until the port partitions a step: it counts no "
+        "collectives",
+    "roofline/hw.py:ICI_LINK_BW":
+        "left out until the port partitions a step (the H100's link is "
+        "roofline/hw.py NVLINK_LINK_BW)",
+    "roofline/hw.py:CHIPS_SINGLE_POD":
+        "left out until the port partitions a step",
+    "roofline/hw.py:CHIPS_MULTI_POD":
+        "left out until the port partitions a step",
+    "kernels/filtered_topk/kernel.py:filtered_topk_pallas":
+        "csrc/filtered_topk.cu behind kernels/filtered_topk/ops.py",
+    "kernels/filtered_topk/kernel.py:BIG": "kernels/_common.py BIG",
+    "kernels/filtered_topk/ref.py:filtered_topk_ref":
+        "kernels/filtered_topk/ops.py filtered_topk_plain",
+    "kernels/filtered_topk/ref.py:BIG": "kernels/_common.py BIG",
+    "kernels/gather_distance/kernel.py:gather_distance_pallas":
+        "csrc/gather_distance.cu behind kernels/gather_distance/ops.py",
+    "kernels/gather_distance/kernel.py:BIG": "kernels/_common.py BIG",
+    "kernels/gather_distance/ref.py:gather_distance_ref":
+        "kernels/gather_distance/ops.py gather_distance_plain",
+    "kernels/gather_distance/ref.py:BIG": "kernels/_common.py BIG",
+    "kernels/pq_adc/kernel.py:pq_adc_pallas":
+        "csrc/pq_adc.cu pq_adc_topr behind kernels/pq_adc/ops.py",
+    "kernels/pq_adc/kernel.py:pq_adc_gather_pallas":
+        "csrc/pq_adc.cu pq_adc_gather behind kernels/pq_adc/ops.py",
+    "kernels/pq_adc/ref.py:pq_adc_topr_ref":
+        "kernels/pq_adc/ops.py pq_adc_topr_plain",
+    "kernels/pq_adc/ref.py:pq_adc_gather_ref":
+        "kernels/pq_adc/ops.py pq_adc_gather_plain",
+    "kernels/pq_adc/ref.py:BIG": "kernels/_common.py BIG",
+    "kernels/embedding_bag/kernel.py:embedding_bag_pallas":
+        "csrc/embedding_bag.cu behind kernels/embedding_bag/ops.py",
+    "kernels/embedding_bag/ref.py:embedding_bag_ref":
+        "kernels/embedding_bag/ops.py embedding_bag_plain",
+}
+
+
+def _public_names(path: Path, attributes: bool) -> set:
+    """Public top-level functions, classes and assigned names of a module,
+    and its classes' public methods as ``Class.name`` (with
+    ``attributes``, also the ``self.name`` its methods assign)."""
+    if not path.exists():
+        return set()
+    out = set()
+
+    def add(name, owner=None):
+        if not name.startswith("_"):
+            out.add(f"{owner}.{name}" if owner else name)
+
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            add(node.name)
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    add(sub.name, node.name)
+                if attributes:
+                    for n in ast.walk(sub):
+                        if (isinstance(n, ast.Attribute)
+                                and isinstance(n.ctx, ast.Store)
+                                and isinstance(n.value, ast.Name)
+                                and n.value.id == "self"):
+                            add(n.attr, node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                for n in (t.elts if isinstance(t, ast.Tuple) else [t]):
+                    if isinstance(n, ast.Name):
+                        add(n.id)
+    return out
+
+
+def test_every_reference_name_has_a_counterpart():
+    """Each public top-level or method name of the JAX package has a port
+    counterpart of the same name in the same module, or an entry in
+    RENAMED saying where it went or why it stays out (read with ``ast``:
+    nothing is imported)."""
+    ref_root, port_root = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    missing = []
+    for ref in sorted(ref_root.rglob("*.py")):
+        rel = ref.relative_to(ref_root)
+        have = _public_names(port_root / rel, attributes=True)
+        missing += [f"{rel.as_posix()}:{name}"
+                    for name in sorted(_public_names(ref, attributes=False))
+                    if name not in have]
+    assert sorted(set(missing) - set(RENAMED)) == []
+    # no stale entry: each still names a reference name the port lacks
+    assert sorted(set(RENAMED) - set(missing)) == []

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s engine, frontend, sharded or models phase, or
-several, alone on the card.
+"""Run ``chip_smoke.py``'s engine, frontend, sharded, models, train or
+dryrun phase, or several, alone on the card.
 
-    python3 tools/engine_phase.py [--phases engine frontend sharded models]
+    python3 tools/engine_phase.py [--phases engine frontend sharded models
+                                   train dryrun]
 
 Builds the serve index as the smoke test's serve phase does (16,384 rows
 of the synthetic paper dataset, HNSW M=16 on the host, favor-anns' PQ
@@ -16,8 +17,10 @@ steps and the background merge, each printing its JSON line (with
 front-end), ``--phases sharded`` ``chip_smoke.phase_sharded`` (the
 sharded backend on a (1, 4) mesh of the card over the same rows);
 ``--phases models`` ``chip_smoke.phase_models`` (the model zoo at its
-published widths) and ``--phases train`` ``chip_smoke.phase_train`` (the
-port's training at published widths); these two need no index, so alone
+published widths), ``--phases train`` ``chip_smoke.phase_train`` (the
+port's training at published widths) and ``--phases dryrun``
+``chip_smoke.phase_dryrun`` (favor-anns' serve_graph dry-run cell and its
+three variants counted on the card); these three need no index, so alone
 they build none.  It skips
 the kernel, serve, live and widths phases, so a serving change is measured
 in a third of the smoke test's time.  Exits non-zero when a check fails.
@@ -40,7 +43,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+",
                     choices=("engine", "frontend", "sharded", "models",
-                             "train"),
+                             "train", "dryrun"),
                     default=["engine"])
     args = ap.parse_args()
     import torch
@@ -55,7 +58,8 @@ def main() -> int:
         return 2
     cs.emit({"tool": "engine_phase", "nvidia_smi": cs.nvidia_smi_line()})
     Kn.build_kernels()
-    index_phases = [p for p in args.phases if p not in ("models", "train")]
+    index_phases = [p for p in args.phases
+                    if p not in ("models", "train", "dryrun")]
     if not index_phases:
         return run_models(cs, torch, args.phases)
     vecs, attrs, _ = synthetic.make_paper_dataset(cs.SERVE_N, 128,
@@ -85,7 +89,7 @@ def main() -> int:
 
 
 def run_models(cs, torch, phases) -> int:
-    """The phases that need no serve index: models, then train."""
+    """The phases that need no serve index: models, train, dryrun."""
     if "models" in phases:
         t0 = time.perf_counter()
         launches = cs.phase_models(torch.device("cuda"))
@@ -96,6 +100,11 @@ def run_models(cs, torch, phases) -> int:
         t0 = time.perf_counter()
         cs.phase_train(torch.device("cuda"))
         cs.emit({"tool": "engine_phase", "phase": "train",
+                 "phase_s": time.perf_counter() - t0})
+    if "dryrun" in phases:
+        t0 = time.perf_counter()
+        cs.phase_dryrun(torch.device("cuda"))
+        cs.emit({"tool": "engine_phase", "phase": "dryrun",
                  "phase_s": time.perf_counter() - t0})
     return 0
 
