@@ -3521,10 +3521,16 @@ def phase_dryrun(dev) -> dict:
     the published widths (4M rows -- 1M for favor_n16m -- x 64 queries,
     d = 128, ef = 128) from the seed: record ok, waves > 0, the count's
     ``gather_distance`` calls > 0 and equal to the kernel's launches in
-    the run (hard); the counted step's ids and distances equal an
-    uncounted run's of the same block (hard); and a small block (the CPU
-    tests' size: 1,024 rows x 4 queries, d = 16), its data drawn on the
-    host, counted the same on the card as on the CPU (hard)."""
+    the run (hard); the record's collective link bytes equal the analytic
+    sum of the estimate's all-reduces and the merge's all-gathers at the
+    block's queries and k over the production mesh's model axis of 16
+    (hard); the counted step's ids and distances equal an uncounted run's
+    of the same block (hard); a small block (the CPU tests' size: 1,024
+    rows x 4 queries, d = 16), its data drawn on the host, counted the same
+    on the card as on the CPU (hard); and one partitioned meta count of the
+    reduced gemma2-2b ``train_4k`` cell on a fake (2, 4) process group:
+    it counts, charges collectives, allocates nothing, and leaves no
+    process group behind (hard)."""
     import dataclasses
 
     import torch
@@ -3564,6 +3570,20 @@ def phase_dryrun(dev) -> dict:
               and launches == gd["calls"],
               f"dryrun {name}: waves {b['waves']}, gather_distance counted "
               f"{gd.get('calls')} against {launches} launches")
+        # per device over the production mesh's model axis (16): the (q,)
+        # f32 counts and the f32 size all-reduced, the (q, k) f32 distances
+        # and int64 ids all-gathered
+        prod = LD.make_production_mesh()
+        g = dict(zip(prod.axis_names, prod.devices.shape))["model"]
+        q, k = b["queries"], b["k"]
+        want = (2 * (g - 1) / g * (4 * q + 4)) + (g - 1) * q * k * (4 + 8)
+        line.update(t_collective_s=r["t_collective_s"],
+                    coll_link_bytes=r["coll_link_bytes"],
+                    coll_link_bytes_analytic=want,
+                    collectives=r["collectives"])
+        check(math.isclose(r["coll_link_bytes"], want, rel_tol=1e-12),
+              f"dryrun {name}: link bytes {r['coll_link_bytes']} against "
+              f"the analytic {want}")
         if name == "serve_graph":
             block, c = keep["block"], keep["count"]
             torch.cuda.synchronize()
@@ -3600,6 +3620,35 @@ def phase_dryrun(dev) -> dict:
           "same": same})
     check(same, "dryrun: the card's count of the small block equals the "
           "CPU's")
+
+    # the partitioned count: a reduced LM train cell on a fake (2, 4) group
+    lm = get_spec("gemma2-2b")
+    mesh = make_test_mesh()
+    cell = LC.build_lm_cell(dataclasses.replace(lm, config=lm.reduced),
+                            lm.cell("train_4k"), mesh)
+    t0 = time.perf_counter()
+    part = LD.count(cell.step_fn, cell.args, shardings=cell.in_shardings,
+                    mesh=mesh)
+    count_s = time.perf_counter() - t0
+    left = torch.distributed.is_initialized()
+    pc = part.cost
+    emit({"phase": "dryrun", "run": "partitioned_reduced_lm_train",
+          "mesh": "2x4", "torch": torch.__version__, "count_s": count_s,
+          "flops": pc.flops, "bytes": pc.bytes_accessed,
+          "coll_link_bytes": pc.coll_link_bytes,
+          "collectives": pc.collectives, "temp_bytes": pc.temp_bytes,
+          "argument_bytes": pc.argument_bytes,
+          "replicated_ops": part.replicated, "split_by_rule": part.split,
+          "off_meta_bytes": LD.off_meta_bytes(part.off_meta),
+          "group_left": left})
+    check(sum(pc.collectives["counts"].values()) > 0
+          and pc.coll_link_bytes > 0,
+          f"dryrun: the partitioned count charges collectives: "
+          f"{pc.collectives}")
+    check(LD.off_meta_bytes(part.off_meta) == 0,
+          f"dryrun: the partitioned count allocated nothing: {part.off_meta}")
+    check(not left, "dryrun: no process group outlives the count")
+    del cell, part
     free_card()
     emit({"phase": "dryrun", "part": "done",
           "phase_s": time.perf_counter() - t_phase,

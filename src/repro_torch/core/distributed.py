@@ -25,10 +25,19 @@ launches, the global-id offsets and the merge then run for real on it), or
 span ``cuda:0..S-1`` on a box with more cards, or ``"cpu"`` for the tests.
 ``arrays`` of a ``ShardedFavorArrays`` stay host numpy; ``place_sharded_db``
 puts each cell's slice on its device.
+
+Where the JAX bodies run a collective -- the merge's all-gathers of every
+shard's (B, k) results, the estimate's all-reduces of the sample counts and
+sizes -- the single controller moves the same data between mesh cells.
+Under a dry-run count (``count_collectives``) each of those points charges
+the collective the JAX body runs, once per device program
+(``serve_collectives``); outside a count the charge is a no-op.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -344,12 +353,62 @@ def place_sharded_db(arrays: dict, mesh: Mesh, specs: dict) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Collective charges of a dry-run count
+# ---------------------------------------------------------------------------
+_charging = threading.local()
+
+
+@contextlib.contextmanager
+def count_collectives(charge):
+    """While active on this thread, the serve steps charge
+    ``charge(kind, operand_bytes, g, programs)`` for each collective the
+    JAX package's ``shard_map`` body runs where data crosses mesh cells:
+    one collective of ``kind`` over a group of ``g`` on an operand of
+    ``operand_bytes``, in each of ``programs`` device programs."""
+    prev = getattr(_charging, "charge", None)
+    _charging.charge = charge
+    try:
+        yield
+    finally:
+        _charging.charge = prev
+
+
+def serve_collectives(b_local: int, k: int, *, merge: bool = True,
+                      estimate: bool = False) -> list[tuple[str, int]]:
+    """The collectives one device program of a sharded serve step runs, as
+    (kind, operand bytes) over the ``model`` axis, for a query block of
+    ``b_local`` rows: the merge's all-gather of the (b_local, k) f32
+    distances and of the ids (int64, as the port moves them; the JAX
+    package's are int32), and the estimate's all-reduces of the
+    (b_local,) f32 sample counts and of the f32 sample size (the port sums
+    the sizes on the host; the JAX package psums an f32 scalar)."""
+    out = []
+    if estimate:
+        out += [("all-reduce", 4 * b_local), ("all-reduce", 4)]
+    if merge:
+        out += [("all-gather", 4 * b_local * k),
+                ("all-gather", 8 * b_local * k)]
+    return out
+
+
+def _charge(colls, g: int) -> None:
+    charge = getattr(_charging, "charge", None)
+    if charge is not None and g > 1:
+        for kind, operand in colls:
+            charge(kind, float(operand), g, g)
+
+
+# ---------------------------------------------------------------------------
 # Sharded serve steps
 # ---------------------------------------------------------------------------
 def _merge_topk(local_d: list, local_i: list, k: int, device):
     """Gather the per-shard (B, k) results onto ``device`` in shard order
     and sort-merge them: (B, S*k) -> stable sort -> first k, so ties go to
-    the lower shard (as ``jnp.argsort`` over the all-gather gives them)."""
+    the lower shard (as ``jnp.argsort`` over the all-gather gives them).
+    Under a count it charges the all-gathers of the JAX merge, over the S
+    shards, the ids at the int64 they cross as."""
+    b, kl = local_d[0].shape
+    _charge(serve_collectives(b, kl), len(local_d))
     d = torch.cat([x.to(device) for x in local_d], dim=1)
     i = torch.cat([x.to(device, torch.int64) for x in local_i], dim=1)
     order = torch.sort(d, dim=1, stable=True).indices[:, :k]
@@ -451,6 +510,9 @@ def make_serve_fns(mesh: Mesh, cfg: SearchConfig, *, ef_sel: int | None = None,
                 c = mask.sum(dim=1, dtype=torch.float32).to(out_dev)
                 cnt = c if cnt is None else cnt + c
                 tot += int(mask.shape[1])
+            # the JAX package's psum of the counts and of the f32 size
+            _charge(serve_collectives(cnt.shape[0], 0, merge=False,
+                                      estimate=True), n_s)
             # a true division, as the JAX package's cnt / psum(tot)
             out.append(cnt / torch.full_like(cnt, tot))
         return torch.cat(out)

@@ -35,7 +35,7 @@ lock of their own: serving threads and a background merge launch kernels
 at the same time.
 
 While a dry-run count is active on a thread (``count_kernels``, entered by
-``launch.dryrun.count_step``), each wrapper (``counted``) charges the count
+``launch.dryrun.count``), each wrapper (``counted``) charges the count
 its call's analytic work -- each input read once, each output written
 once, FLOPs as the kernel table's bounds count them -- and runs with the
 count's dispatch modes off, so its own torch ops (the plain version's, or
@@ -101,8 +101,9 @@ _counting = threading.local()
 @contextlib.contextmanager
 def count_kernels(charge):
     """While active on this thread, every ``counted`` wrapper call charges
-    ``charge(name, flops, nbytes)`` its analytic work instead of its own
-    torch ops."""
+    ``charge(name, flops, nbytes, (args, kwargs), out)`` its analytic work
+    instead of its own torch ops (the count marks the inputs read and
+    holds the outputs as live)."""
     prev = getattr(_counting, "charge", None)
     _counting.charge = charge
     try:
@@ -122,6 +123,12 @@ def counted(name: str, work):
             if charge is None:
                 return fn(*args, **kwargs)
             from torch.utils._python_dispatch import _disable_current_modes
+            from torch.utils._pytree import tree_flatten
+            if any(type(t).__name__ == "DTensor"
+                   for t in tree_flatten((args, kwargs))[0]):
+                raise NotImplementedError(
+                    f"{name}: a kernel wrapper takes one device's tensors, "
+                    "not DTensors: call it inside a per-device program")
             _counting.charge = None
             try:
                 with _disable_current_modes():
@@ -129,7 +136,7 @@ def counted(name: str, work):
                     out = fn(*args, **kwargs)
             finally:
                 _counting.charge = charge
-            charge(name, float(flops), float(nbytes))
+            charge(name, float(flops), float(nbytes), (args, kwargs), out)
             return out
         return inner
     return deco

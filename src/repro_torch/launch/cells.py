@@ -8,8 +8,13 @@ optimizer state and the inputs are ``meta`` tensors of the JAX package's
 shapes and dtypes, and the shardings are the port's partition specs
 (``models.module.logical_to_sharding``: a tuple of mesh axes per
 dimension, as a ``PartitionSpec`` reads).  ``dryrun.py`` runs each step
-once over them and counts it.  The model functions get ``mesh=None``: the
-port runs a step on one device.
+once over them and counts it: partitioned, as DTensors of those specs on a
+fake process group of the mesh's device count (``partition.py``).  The
+LM functions get the mesh, as the JAX package's do, so their ``constrain``
+calls redistribute the activations.  favor-anns' cells are the JAX
+package's ``shard_map`` steps: one program per mesh cell, run by the single
+controller (``core.distributed.make_serve_fns``), with their per-cell specs
+in ``Cell.shard_specs``.
 
 One cell is counted on real tensors instead: favor-anns' ``serve_graph``,
 whose route reads device values to steer its Python loops (the descent's
@@ -59,6 +64,11 @@ class Cell:
     # a cell counted on real tensors: block(device, seed, data_device=None)
     # -> Block, one mesh cell's per-device program (``dryrun.count_block``)
     block: object = None
+    # a single controller's cell (in_shardings None): each argument's and
+    # each output's per-cell spec, the JAX package's shard_map in_specs
+    # and out_specs
+    shard_specs: tuple = None
+    out_specs: tuple = None
 
 
 @dataclass
@@ -138,7 +148,7 @@ def build_lm_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
         ocfg = opt.OptConfig(total_steps=10000)
 
         def loss_fn(p, batch):
-            return lm_loss(p, cfg, batch["tokens"], batch["labels"])
+            return lm_loss(p, cfg, batch["tokens"], batch["labels"], mesh)
 
         step = make_train_step(loss_fn, ocfg)
         batch_sds = {"tokens": sds((b, s), I32), "labels": sds((b, s), I32)}
@@ -151,7 +161,7 @@ def build_lm_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
 
     if cell.kind == "prefill":
         def step(p, tokens):
-            return prefill(p, cfg, tokens, s)
+            return prefill(p, cfg, tokens, s, mesh)
         tok_sds = sds((b, s), I32)
         mf = 2.0 * cfg.active_param_count() * b * s
         return Cell(spec.arch_id, cell.name, step, (params_sds, tok_sds),
@@ -174,7 +184,7 @@ def build_lm_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
     cache_sh = {k: cache_spec for k in cache_sds}
 
     def step(p, token, caches):
-        return decode_step(p, cfg, token, caches, s - 1)
+        return decode_step(p, cfg, token, caches, s - 1, mesh)
 
     tok_sds = sds((b, 1), I32)
     mf = 2.0 * cfg.active_param_count() * b
@@ -404,10 +414,14 @@ def favor_cell(cfg, shape: str, route: str, mesh, *,
     else:
         mf = cfg.batch * cfg.n * 2.0 * cfg.dim
         block = None
+    q = qax if len(qax) > 1 else (qax[0] if qax else None)
+    shard_specs = (dist.db_specs(), (q, None),
+                   {k: (q,) for k in specs["programs"]}, (q,))
     return Cell("favor-anns", shape, favor_step(mesh, scfg, qax, route),
                 (specs["db"], specs["queries"], specs["programs"],
                  specs["valid"]),
-                None, mf, note=note, block=block)
+                None, mf, note=note, block=block, shard_specs=shard_specs,
+                out_specs=((q, None), (q, None)))
 
 
 def favor_step(mesh, scfg, query_axes, route: str):
@@ -510,7 +524,7 @@ def favor_graph_block(cfg, scfg, mesh, sample_rate: float, device, seed: int,
                 "p_hat": float(p_hat.mean())}
 
     info = {"rows": rows, "queries": q, "sample_rows": int(samp.numel()),
-            "dim": cfg.dim, "ef": cfg.ef, "cand_cap": scfg.ccap,
+            "dim": cfg.dim, "k": scfg.k, "ef": cfg.ef, "cand_cap": scfg.ccap,
             "max_steps": scfg.steps, "delta_d": GRAPH_DELTA_D,
             "filter": "Inclusion('i0', [1, 4, 7])",
             # the cell's formula at the block's queries: one traversal a

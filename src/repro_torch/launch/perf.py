@@ -48,7 +48,7 @@ def lm_variant(arch: str, shape: str, *, attn_chunk: int = 0,
             ocfg = opt.OptConfig(total_steps=10000)
 
             def loss_fn(p, batch):
-                return lm_loss(p, cfg, batch["tokens"], batch["labels"])
+                return lm_loss(p, cfg, batch["tokens"], batch["labels"], mesh)
 
             cell.step_fn = make_train_step(loss_fn, ocfg,
                                            microbatches=microbatches)

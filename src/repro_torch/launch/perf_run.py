@@ -6,10 +6,12 @@ append each record to perf_results.json.
 
 The experiments and their hypotheses are the JAX package's, copied
 unchanged: the hypotheses were written about TPU dry runs, and no number
-in them is the H100's.  The port's count has no collective term, so the
-gcn experiments read only the compute and memory terms.  The three
-favor-anns ``serve_graph`` experiments count one mesh cell's block on real
-tensors, on ``--device`` (the card unless ``cpu`` is given).
+in them is the H100's.  Each variant is counted partitioned on the
+production mesh, so the collective term the olmoe and gcn hypotheses are
+about is read from the port's own count (``roofline.t_collective_s``,
+``roofline.collectives``).  The three favor-anns ``serve_graph``
+experiments count one mesh cell's block on real tensors, on ``--device``
+(the card unless ``cpu`` is given).
 """
 import argparse
 import json

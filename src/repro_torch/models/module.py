@@ -188,9 +188,21 @@ logical_to_sharding = spec_tree
 
 
 def constrain(x, mesh, *axes, rules: dict | None = None):
-    """Sharding constraint by logical axes: the identity off-mesh.  Model
-    sharding is not part of the port, so a mesh is refused."""
+    """Sharding constraint by logical axes (``with_sharding_constraint``):
+    the identity off-mesh.  A DTensor -- the dry run's partitioned count,
+    ``launch/partition.py`` -- is redistributed to the placements the
+    axes' spec names on ``mesh``; a plain tensor on a mesh of ``meta``
+    devices (an unpartitioned count) stays as it is.  The port runs its
+    models on one device, so a mesh of real devices is refused."""
     if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        from ..launch.partition import placements
+        spec = spec_tree({"x": tuple(axes)}, mesh, rules)["x"]
+        return x.redistribute(x.device_mesh, placements(
+            spec, x.dim(), mesh.axis_names))
+    if all(torch.device(d).type == "meta" for d in np.ravel(mesh.devices)):
         return x
     raise NotImplementedError(
         "the port runs its models on one device: pass mesh=None")

@@ -10,13 +10,15 @@ constants of ``hw``:
 The JAX package reads FLOPs and bytes from XLA's ``cost_analysis()`` of
 the compiled per-device program and parses the collectives out of its
 optimized HLO text.  The port compiles nothing: ``analyze`` reads the dry
-run's own count (``Cost``: matmul FLOPs from ``torch.utils.flop_counter``
-and each op's input plus output bytes, unfused, so an upper bound beside
-XLA's fused count).  The port does not partition a step: the per-device
-terms are the whole count divided evenly by the mesh's device count, and
-there are no collectives.  ``parse_collectives`` (pure text, copied from
-the JAX package) stays for HLO text from elsewhere; under ring algorithms
-it charges, per collective op:
+run's own count of the per-device program (``Cost``: FLOPs from
+``torch.utils.flop_counter``'s formulas, each op's input plus output bytes,
+unfused, so an upper bound beside XLA's fused count, and each collective's
+link bytes).  A partitioned count (DTensor on a fake process group,
+``launch/partition.py``) is one device's program already; a single
+controller's count of every mesh cell's program (favor-anns) is divided by
+its ``programs``.  The collectives are charged where they are dispatched
+(``ring_link_bytes``), by the ring formulas ``parse_collectives`` (pure
+text, copied from the JAX package) applies to HLO text, per collective op:
 
     all-reduce      2 * (g-1)/g * bytes(operand)
     all-gather      (g-1)/g * bytes(result)
@@ -24,7 +26,7 @@ it charges, per collective op:
     all-to-all      (g-1)/g * bytes(operand)
     collective-permute  bytes(operand)
 
-with g the replica-group size parsed from the op's replica_groups.
+with g the replica-group size (the op's process group's size).
 """
 from __future__ import annotations
 
@@ -137,15 +139,41 @@ def parse_collectives(hlo_text: str, n_devices: int,
     return st
 
 
+def ring_link_bytes(kind: str, operand_bytes: float, g: int) -> float:
+    """The link bytes one device moves for one collective of ``kind`` on
+    an operand of ``operand_bytes`` over a group of ``g``: the ring
+    formulas of ``parse_collectives``, written for the operand (an
+    all-gather's result is g operands)."""
+    if g <= 1:
+        return 0.0
+    frac = (g - 1) / g
+    if kind == "all-reduce":
+        return 2.0 * frac * operand_bytes
+    if kind == "all-gather":
+        return frac * g * operand_bytes
+    if kind in ("reduce-scatter", "all-to-all"):
+        return frac * operand_bytes
+    if kind == "collective-permute":
+        return float(operand_bytes)
+    raise ValueError(f"unknown collective {kind!r}")
+
+
 @dataclass
 class Cost:
-    """The dry run's count of one step: matmul FLOPs, bytes read and
-    written by every op (views excluded), and the step's argument and
-    output bytes -- totals over the whole step, on no device."""
+    """The dry run's count of one step: FLOPs, bytes read and written by
+    every op (views excluded), collective link bytes and the collectives
+    ({"counts": {kind: n}, "by_op": {kind: link bytes}}) -- totals over the
+    ``programs`` device programs the count ran (1 for a partitioned count
+    or one block) -- and one device's argument, output and temporary
+    bytes."""
     flops: float
     bytes_accessed: float
     argument_bytes: int
     output_bytes: int
+    coll_link_bytes: float = 0.0
+    collectives: dict = field(default_factory=lambda: {"counts": {},
+                                                       "by_op": {}})
+    temp_bytes: int | None = None
 
 
 @dataclass
@@ -205,19 +233,31 @@ class Roofline:
         }
 
 
-def analyze(cost: Cost, n_devices: int, model_flops: float = 0.0) -> Roofline:
-    """The roofline of one step's ``Cost`` on ``n_devices``: the count
-    divided evenly, no collectives (the port does not partition a step)."""
-    return Roofline(flops=cost.flops / n_devices,
-                    hbm_bytes=cost.bytes_accessed / n_devices,
-                    coll_link_bytes=0.0, n_devices=n_devices,
-                    collectives={"counts": {}, "by_op": {}},
+def analyze(cost: Cost, n_devices: int, model_flops: float = 0.0,
+            programs: int = 1) -> Roofline:
+    """The roofline of one step's ``Cost`` on ``n_devices``: the count's
+    per-device terms as given, its totals divided by the ``programs`` it
+    covers (a single controller's count of every mesh cell's program)."""
+    coll = cost.collectives
+    return Roofline(flops=cost.flops / programs,
+                    hbm_bytes=cost.bytes_accessed / programs,
+                    coll_link_bytes=cost.coll_link_bytes / programs,
+                    n_devices=n_devices,
+                    collectives={
+                        "counts": {k: v / programs if v % programs else
+                                   v // programs
+                                   for k, v in coll["counts"].items()},
+                        "by_op": {k: v / programs
+                                  for k, v in coll["by_op"].items()}},
                     model_flops=model_flops)
 
 
-def memory_analysis_dict(cost: Cost, n_devices: int = 1) -> dict:
-    """What the count knows of memory: the step's argument and output
-    bytes, divided evenly over ``n_devices`` (no temporaries: the count
-    does not follow lifetimes)."""
-    return {"argument_size_in_bytes": cost.argument_bytes // n_devices,
-            "output_size_in_bytes": cost.output_bytes // n_devices}
+def memory_analysis_dict(cost: Cost) -> dict:
+    """``memory_analysis``' fields the count knows, per device: the
+    arguments the step reads, its outputs and its temporaries (the peak
+    live bytes beyond both)."""
+    out = {"argument_size_in_bytes": cost.argument_bytes,
+           "output_size_in_bytes": cost.output_bytes}
+    if cost.temp_bytes is not None:
+        out["temp_size_in_bytes"] = cost.temp_bytes
+    return out

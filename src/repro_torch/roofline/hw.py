@@ -12,3 +12,8 @@ HBM_PER_CHIP = 80e9
 # directions together: 50 GB/s a link (the rate the collective term
 # charges, as the JAX package charged one ICI link's)
 NVLINK_LINK_BW = 900e9 / 18   # bytes/s per link
+
+# the dry run's production meshes (``launch/mesh.py``): device counts, not
+# rates
+CHIPS_SINGLE_POD = 256
+CHIPS_MULTI_POD = 512

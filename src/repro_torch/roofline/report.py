@@ -1,8 +1,7 @@
 """Render the port's dryrun_results.json (``launch/dryrun.py``) into the
-JAX package's roofline table: the same columns, the terms on the H100's
-constants.  The port's records count no collectives and no temporaries, so
-t_collective reads 0 and mem/dev the argument bytes alone; the JAX
-package's collective-schedule table has nothing to show and is left out."""
+JAX package's roofline tables: the same columns, the terms on the H100's
+constants, and the single-pod collective schedule (each record's
+collectives by kind and its link bytes per device)."""
 from __future__ import annotations
 
 import json
@@ -59,6 +58,20 @@ def table(results: list[dict], mesh: str) -> str:
     return "\n".join(rows)
 
 
+def collective_summary(results: list[dict], mesh: str) -> str:
+    rows = ["| arch | shape | collectives (count) | link bytes/dev |",
+            "|---|---|---|---|"]
+    for r in sorted(results, key=lambda r: (r["arch"], r["shape"])):
+        if r["mesh"] != mesh or not r.get("ok") or r.get("skipped"):
+            continue
+        ro = r["roofline"]
+        cc = ro["collectives"]["counts"]
+        cs = " ".join(f"{k}:{v}" for k, v in sorted(cc.items())) or "none"
+        rows.append(f"| {r['arch']} | {r['shape']} | {cs} | "
+                    f"{fmt_bytes(ro['coll_link_bytes'])} |")
+    return "\n".join(rows)
+
+
 def main():
     path = sys.argv[1] if len(sys.argv) > 1 else "dryrun_results.json"
     with open(path) as f:
@@ -68,6 +81,8 @@ def main():
         n = sum(1 for r in results if r["mesh"] == mesh)
         print(f"\n## Roofline -- mesh {mesh} ({n_ok}/{n} cells ok)\n")
         print(table(results, mesh))
+    print("\n## Collective schedule (single-pod)\n")
+    print(collective_summary(results, "16x16"))
 
 
 if __name__ == "__main__":

@@ -163,8 +163,9 @@ class _FakeMesh:
 @pytest.mark.parametrize("remat", [False, True])
 def test_dryrun_reduced_lm_train_cell(remat):
     """The whole step -- forward, backward, AdamW update, with and without
-    remat -- on meta tensors: nothing but meta tensors written, every FLOP
-    counted once."""
+    remat -- partitioned on the production mesh, on meta tensors: nothing
+    but meta tensors written, every FLOP counted once, the collectives and
+    temporaries of one device's program, and no process group left."""
     def builder(arch, shape, mesh):
         spec = get_spec(arch)
         cfg = dataclasses.replace(spec.reduced, remat=remat)
@@ -177,10 +178,15 @@ def test_dryrun_reduced_lm_train_cell(remat):
     assert D.off_meta_bytes(rec["off_meta_ops"]) == 0
     r = rec["roofline"]
     assert 0.0 < r["useful_flops_frac"] <= 1.0
-    assert r["coll_link_bytes"] == 0.0 and r["collectives"]["counts"] == {}
+    assert rec["partition"] == ("partitioned (data=16, model=16): DTensor, "
+                                "fake group of 256")
+    assert r["coll_link_bytes"] > 0 and r["t_collective_s"] > 0
+    assert r["coll_link_bytes"] == sum(r["collectives"]["by_op"].values())
+    assert "all-reduce" in r["collectives"]["counts"]
     assert r["t_compute_s"] > 0 and r["t_memory_s"] > 0
-    assert "no collectives" in rec["partition"]
     assert rec["memory"]["argument_size_in_bytes"] > 0
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+    assert not torch.distributed.is_initialized()
 
 
 def test_dryrun_counts_match_the_shapes():
@@ -331,9 +337,10 @@ def graph_records():
 
 def test_serve_graph_cell_counts_one_block_on_real_tensors(graph_records):
     rec = graph_records["cell"]
-    assert rec["partition"].startswith("one mesh cell counted on real "
-                                       "tensors: the per-device program of "
-                                       "one of the 8 blocks")
+    assert rec["partition"].startswith("partitioned (data=2, model=4): one "
+                                       "mesh cell counted on real tensors, "
+                                       "the per-device program of one of "
+                                       "the 8 blocks")
     b = rec["block"]
     assert (b["rows"], b["queries"], b["sample_rows"]) == (1024, 4, 10)
     assert b["device"] == "cpu" and b["peak_memory_bytes"] is None
@@ -343,7 +350,16 @@ def test_serve_graph_cell_counts_one_block_on_real_tensors(graph_records):
     assert b["model_flops"] == 4 * 4.0 * RED.ef * RED.m0 * 2.0 * RED.dim
     r = rec["roofline"]
     assert r["t_compute_s"] > 0 and r["t_memory_s"] > 0
-    assert r["bottleneck"] == "memory" and r["t_collective_s"] == 0
+    assert r["bottleneck"] == "memory"
+    # the estimate's all-reduces of the (4,) f32 counts and the f32 size and
+    # the merge's all-gathers of the (4, k) f32 distances and int64 ids, over
+    # the model axis of 4
+    g, q, k = 4, 4, RED.k
+    want = {"all-reduce": 2 * (g - 1) / g * (4 * q + 4),
+            "all-gather": (g - 1) * q * k * (4 + 8)}
+    assert r["collectives"] == {"counts": {"all-reduce": 2, "all-gather": 2},
+                                "by_op": want}
+    assert r["coll_link_bytes"] == sum(want.values())
     kern = rec["count"]["kernels"]
     assert set(kern) == {"gather_distance"}
     assert kern["gather_distance"]["calls"] > b["waves"]

@@ -102,24 +102,35 @@ def test_roofline_terms_and_bottleneck():
 
 
 def test_analyze_divides_the_count_evenly():
+    """A single controller's count of every mesh cell's program is divided
+    evenly by the programs it covers, collectives included; a partitioned
+    count is one device's program and is taken as given."""
+    coll = {"counts": {"all-gather": 512}, "by_op": {"all-gather": 2.56e6}}
     cost = PA.Cost(flops=8e15, bytes_accessed=4e12, argument_bytes=1024,
-                   output_bytes=512)
-    r = PA.analyze(cost, 256, model_flops=4e15)
+                   output_bytes=512, coll_link_bytes=2.56e6,
+                   collectives=coll, temp_bytes=64)
+    r = PA.analyze(cost, 256, model_flops=4e15, programs=256)
     assert r.flops == 8e15 / 256 and r.hbm_bytes == 4e12 / 256
-    assert r.coll_link_bytes == 0.0 and r.t_collective == 0.0
-    assert r.collectives == {"counts": {}, "by_op": {}}
+    assert r.coll_link_bytes == 1e4
+    assert r.t_collective == pytest.approx(1e4 / 50e9)
+    assert r.collectives == {"counts": {"all-gather": 2},
+                             "by_op": {"all-gather": 1e4}}
     assert r.useful_flops_frac == 0.5
     assert r.t_compute == pytest.approx(8e15 / 256 / 989.4e12)
-    assert PA.memory_analysis_dict(cost, 4) == {
-        "argument_size_in_bytes": 256, "output_size_in_bytes": 128}
+    given = PA.analyze(cost, 256, model_flops=4e15)
+    assert (given.flops, given.hbm_bytes, given.coll_link_bytes) == \
+        (8e15, 4e12, 2.56e6)
+    assert PA.memory_analysis_dict(cost) == {
+        "argument_size_in_bytes": 1024, "output_size_in_bytes": 512,
+        "temp_size_in_bytes": 64}
 
 
 def test_report_renders_port_records(tmp_path, monkeypatch, capsys):
     cost = PA.Cost(flops=2e15, bytes_accessed=1e12, argument_bytes=3 * 2**30,
                    output_bytes=0)
     recs = [{"arch": "a", "shape": "s", "mesh": "16x16", "ok": True,
-             "roofline": PA.analyze(cost, 256, 1e15).to_dict(),
-             "memory": PA.memory_analysis_dict(cost, 256)},
+             "roofline": PA.analyze(cost, 256, 1e15, programs=256).to_dict(),
+             "memory": PA.memory_analysis_dict(cost)},
             {"arch": "b", "shape": "s", "mesh": "16x16", "ok": True,
              "skipped": "why"},
             {"arch": "c", "shape": "s", "mesh": "16x16", "ok": False}]

@@ -256,16 +256,7 @@ RENAMED = {
         "none, by design: the count runs every layer (a Python loop, not a "
         "scan counted once), so it needs no depth probes",
     "launch/cells.py:build_probe_cell": "none, by design: as probe_depths",
-    "roofline/report.py:collective_summary":
-        "left out until the port partitions a step: it counts no "
-        "collectives",
-    "roofline/hw.py:ICI_LINK_BW":
-        "left out until the port partitions a step (the H100's link is "
-        "roofline/hw.py NVLINK_LINK_BW)",
-    "roofline/hw.py:CHIPS_SINGLE_POD":
-        "left out until the port partitions a step",
-    "roofline/hw.py:CHIPS_MULTI_POD":
-        "left out until the port partitions a step",
+    "roofline/hw.py:ICI_LINK_BW": "renamed: roofline/hw.py NVLINK_LINK_BW",
     "kernels/filtered_topk/kernel.py:filtered_topk_pallas":
         "csrc/filtered_topk.cu behind kernels/filtered_topk/ops.py",
     "kernels/filtered_topk/kernel.py:BIG": "kernels/_common.py BIG",
