@@ -216,6 +216,8 @@ FE_PER_TENANT = 1024   # the burst: 3 x 1024 requests
 FE_COALESCE_MS = 2.0   # the engine's max_wait_ms
 FE_PROBES = 16         # single requests timed for the front-end's overhead
 SHARDS = 4             # sharded phase: model-axis extent of the card mesh
+BRUTE_REPEATS = 20     # sharded phase: card-vs-CPU brute comparisons
+BRUTE_QUERIES = 128    # of the batch's queries, in each of them
 # models phase: dlrm-rm2's retrieval_cand cell (1M candidates x its
 # embed_dim, k = 100, one W = 8 program a user) at batch 1 and serve_p99's
 # 512; the recsys cells serve_p99 and serve_bulk; greedy LM serving:
@@ -931,6 +933,34 @@ def serve_pass(fi, opts, qs, flts, names, truth, label: str):
     return line, res, rec
 
 
+def adc_boundary_keep(adc, qs, flts, opts):
+    """(rows,) bool: the brute rows of ``qs`` / ``flts`` to compare card and
+    CPU on -- under ``use_pq`` the rows with no near-tie at the ADC
+    candidate boundary R in any of ``adc``'s scans (their candidate sets
+    may differ by the tie), else every row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.pq_adc import ops as pq
+    from repro_torch.quant.adc import build_luts
+
+    keep = np.ones(len(qs), bool)
+    if not (opts.use_pq and len(qs)):
+        return keep
+    rerank, compile_programs, scans = adc
+    r = max(K, (opts.rerank or rerank) * K)
+    bq = torch.as_tensor(qs)
+    progs = compile_programs(flts)
+    for codes, norms, ints, floats, centroids in scans:
+        _, d = pq.pq_adc_topr(codes, norms, ints, floats,
+                              build_luts(centroids, bq), progs, r=r + 1)
+        d = d.numpy().astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            near = ~(d[:, r] - d[:, r - 1] > RTOL * d[:, r - 1])
+        keep &= ~(near & np.isfinite(d[:, r]))
+    return keep
+
+
 def cpu_check(query, adc, res, qs, flts, opts, label: str) -> dict:
     """A CPU copy of the card's backend on a query subset (16 brute-routed,
     48 graph-routed), on the same graph(s), codebook and codes: identical
@@ -943,11 +973,8 @@ def cpu_check(query, adc, res, qs, flts, opts, label: str) -> dict:
     centroids)] with one entry for each ``pq_adc_topr`` scan a brute query
     runs: one for the local index, one per shard)."""
     import numpy as np
-    import torch
 
-    from repro_torch.kernels.pq_adc import ops as pq
     from repro_torch.parity import topk_mismatch
-    from repro_torch.quant.adc import build_luts
 
     t0 = time.perf_counter()
     brute = res.routed_brute
@@ -960,19 +987,8 @@ def cpu_check(query, adc, res, qs, flts, opts, label: str) -> dict:
     check(bool((rc.routed_brute == brute[sub]).all()),
           f"{label}: routes card == cpu")
     bs = rc.routed_brute
-    keep = np.ones(int(bs.sum()), bool)
-    if opts.use_pq and bs.any():
-        rerank, compile_programs, scans = adc
-        r = max(K, (opts.rerank or rerank) * K)
-        bq = torch.as_tensor(qs[sub][bs])
-        progs = compile_programs([sflts[i] for i in np.nonzero(bs)[0]])
-        for codes, norms, ints, floats, centroids in scans:
-            _, d = pq.pq_adc_topr(codes, norms, ints, floats,
-                                  build_luts(centroids, bq), progs, r=r + 1)
-            d = d.numpy().astype(np.float64)
-            with np.errstate(invalid="ignore"):
-                near = ~(d[:, r] - d[:, r - 1] > RTOL * d[:, r - 1])
-            keep &= ~(near & np.isfinite(d[:, r]))
+    keep = adc_boundary_keep(adc, qs[sub][bs],
+                             [sflts[i] for i in np.nonzero(bs)[0]], opts)
     m = topk_mismatch(rc.ids[bs][keep], rc.dists[bs][keep],
                       res.ids[sub][bs][keep], res.dists[sub][bs][keep],
                       RTOL, ATOL)
@@ -2596,7 +2612,10 @@ def phase_sharded(dev, saved: Path) -> dict:
          f32 brute route against the LocalBackend over the same rows (ids
          outside ties, distances at the kernel bar); graph recall within
          0.1 of the LocalBackend's, ``use_pq`` brute recall within 0.02 of
-         the sharded f32's;
+         the sharded f32's; the f32 and ``use_pq`` brute scans of
+         BRUTE_QUERIES queries against the CPU copy's BRUTE_REPEATS times
+         each, every repeat at the kernel bar (its largest distance
+         difference printed);
       3. a (2, SHARDS) mesh on the same card: the same bits;
       4. ``ServeEngine`` over the sharded backend: 1024 requests with
          ``router.execute``'s bits; ``CachingBackend`` over it, cold and
@@ -2689,6 +2708,31 @@ def phase_sharded(dev, saved: Path) -> dict:
         emit(line)
     rs32 = lines["f32"]["sharded"]["recall_at_10"]
     check(rs32["brute"] == 1.0, f"sharded f32 brute recall {rs32['brute']}")
+
+    # the card's brute scans against the CPU copy's, BRUTE_REPEATS times
+    # each (the CPU's answer once: it does not vary)
+    query_cpu, adc = cpu_copy
+    sub_q, sub_f = qs[:BRUTE_QUERIES], flts[:BRUTE_QUERIES]
+    repeats = {"phase": "sharded", "part": "brute_repeats"}
+    for label, use_pq in (("f32", False), ("use_pq", True)):
+        opts = SearchOptions(k=K, ef=EF, force="brute", use_pq=use_pq)
+        want = query_cpu(sub_q, sub_f, opts)
+        keep = adc_boundary_keep(adc, sub_q, sub_f, opts)
+        worst, off = 0.0, []
+        for i in range(BRUTE_REPEATS):
+            got = router.execute(sh, sub_q, sub_f, opts)
+            m = topk_mismatch(want.ids[keep], want.dists[keep],
+                              got.ids[keep], got.dists[keep], RTOL, ATOL)
+            worst = max(worst, m["max_abs_diff"])
+            if m["dist_mismatch"] or m["id_mismatch"]:
+                off.append({"repeat": i, **m})
+        repeats[label] = {"repeats": BRUTE_REPEATS, "queries": len(sub_q),
+                          "near_tie_rows_excluded": int((~keep).sum()),
+                          "max_abs_diff": worst, "off_repeats": off}
+        check(not off, f"sharded {label} brute, card vs cpu: {len(off)} of "
+              f"{BRUTE_REPEATS} repeats off the bar, largest distance "
+              f"difference {worst}: {off[:3]}")
+    emit(repeats)
     for label in ("use_pq", "use_pq+graph_pq"):
         rq = lines[label]["sharded"]["recall_at_10"]["brute"]
         check(rq >= rs32["brute"] - RECALL_SLACK,
@@ -3527,10 +3571,12 @@ def phase_dryrun(dev) -> dict:
     (hard); the counted step's ids and distances equal an uncounted run's
     of the same block (hard); a small block (the CPU tests' size: 1,024
     rows x 4 queries, d = 16), its data drawn on the host, counted the same
-    on the card as on the CPU (hard); and one partitioned meta count of the
-    reduced gemma2-2b ``train_4k`` cell on a fake (2, 4) process group:
-    it counts, charges collectives, allocates nothing, and leaves no
-    process group behind (hard)."""
+    on the card as on the CPU (hard); and the partitioned meta counts of
+    ``launch/pinned.py``'s two cells (the reduced gemma2-2b ``train_4k`` and
+    gcn-cora ``ogb_products``) on a fake (2, 4) process group under this
+    machine's torch: each equals the pinned table (FLOPs, collectives by
+    kind, link bytes), allocates nothing, and leaves no process group
+    behind (hard)."""
     import dataclasses
 
     import torch
@@ -3540,6 +3586,7 @@ def phase_dryrun(dev) -> dict:
     from repro_torch.launch import cells as LC
     from repro_torch.launch import dryrun as LD
     from repro_torch.launch import perf_run as LP
+    from repro_torch.launch import pinned as LPin
     from repro_torch.launch.mesh import make_test_mesh
 
     t_phase = time.perf_counter()
@@ -3621,34 +3668,32 @@ def phase_dryrun(dev) -> dict:
     check(same, "dryrun: the card's count of the small block equals the "
           "CPU's")
 
-    # the partitioned count: a reduced LM train cell on a fake (2, 4) group
-    lm = get_spec("gemma2-2b")
-    mesh = make_test_mesh()
-    cell = LC.build_lm_cell(dataclasses.replace(lm, config=lm.reduced),
-                            lm.cell("train_4k"), mesh)
-    t0 = time.perf_counter()
-    part = LD.count(cell.step_fn, cell.args, shardings=cell.in_shardings,
-                    mesh=mesh)
-    count_s = time.perf_counter() - t0
-    left = torch.distributed.is_initialized()
-    pc = part.cost
-    emit({"phase": "dryrun", "run": "partitioned_reduced_lm_train",
-          "mesh": "2x4", "torch": torch.__version__, "count_s": count_s,
-          "flops": pc.flops, "bytes": pc.bytes_accessed,
-          "coll_link_bytes": pc.coll_link_bytes,
-          "collectives": pc.collectives, "temp_bytes": pc.temp_bytes,
-          "argument_bytes": pc.argument_bytes,
-          "replicated_ops": part.replicated, "split_by_rule": part.split,
-          "off_meta_bytes": LD.off_meta_bytes(part.off_meta),
-          "group_left": left})
-    check(sum(pc.collectives["counts"].values()) > 0
-          and pc.coll_link_bytes > 0,
-          f"dryrun: the partitioned count charges collectives: "
-          f"{pc.collectives}")
-    check(LD.off_meta_bytes(part.off_meta) == 0,
-          f"dryrun: the partitioned count allocated nothing: {part.off_meta}")
-    check(not left, "dryrun: no process group outlives the count")
-    del cell, part
+    # the pinned partitioned counts (launch/pinned.py): the reduced
+    # gemma2-2b train_4k and gcn-cora ogb_products cells on a fake (2, 4)
+    # group, under this machine's torch, held to the table
+    for key in LPin.PINNED:
+        t0 = time.perf_counter()
+        part = LPin.count_cell(key)
+        count_s = time.perf_counter() - t0
+        left = torch.distributed.is_initialized()
+        pc, got = part.cost, LPin.record(part)
+        diff = LPin.differences(key, got)
+        emit({"phase": "dryrun", "run": f"pinned {key}", "mesh": "2x4",
+              "torch": torch.__version__, "count_s": count_s,
+              "flops": pc.flops, "bytes": pc.bytes_accessed,
+              "coll_link_bytes": pc.coll_link_bytes,
+              "collectives": pc.collectives, "temp_bytes": pc.temp_bytes,
+              "argument_bytes": pc.argument_bytes,
+              "replicated_ops": part.replicated, "split_by_rule": part.split,
+              "off_meta_bytes": LD.off_meta_bytes(part.off_meta),
+              "group_left": left, "differences": diff})
+        check(not diff, f"dryrun: the pinned count of {key} under torch "
+              f"{torch.__version__}: {diff}")
+        check(LD.off_meta_bytes(part.off_meta) == 0,
+              f"dryrun: the partitioned count allocated nothing: "
+              f"{part.off_meta}")
+        check(not left, "dryrun: no process group outlives the count")
+        del part
     free_card()
     emit({"phase": "dryrun", "part": "done",
           "phase_s": time.perf_counter() - t_phase,

@@ -22,9 +22,13 @@ its op, shape, bytes and calling line (``off_meta_ops``;
 bytes, per checkpointed layer), and ``off_meta_bytes`` sums them: the dry
 run allocates nothing when it is 0 and no card is named.
 
-  * FLOPs are ``torch.utils.flop_counter``'s formulas (the matmul-like ops:
-    ``mm``, ``bmm``, ``addmm``, attention; elementwise ops count none),
-    plus an all-reduce's adds, as XLA's cost analysis counts them;
+  * FLOPs are ``torch.utils.flop_counter``'s formulas for the
+    matmul-like ops (``mm``, ``bmm``, ``addmm``, attention) and XLA's cost
+    analysis rules for the rest (``xla_flops``: an elementwise op one an
+    element, a transcendental none, a reduction one an input element it
+    folds, an all-reduce's adds), with XLA's fusion duplication modelled
+    (``_Count._fused``); each record splits them by class
+    (``count.flops_by``);
   * bytes are the inputs plus outputs of every op that is not a view,
     unfused: an upper bound beside XLA's count of a fused program (an
     indexing op is charged its whole source tensor, as XLA's cost model
@@ -33,10 +37,17 @@ run allocates nothing when it is 0 and no card is named.
     (``analysis.ring_link_bytes``) over their group's size, by kind
     (``roofline.collectives``) and by site (``count.collectives_at``: the
     kind, group, calling line and DTensor op of the heaviest);
-  * where DTensor would replicate an op XLA splits -- a scatter-add, a
-    gather or scatter-add along a sharded dimension, a (log-)softmax along
-    one, a batched matmul with strided batch shards, an argmax -- the count
-    splits it as XLA does (``count.split_by_rule``); an op DTensor cannot
+  * where DTensor would replicate an op XLA splits, or place it
+    otherwise -- a scatter-add, a gather or scatter-add along a sharded
+    dimension, a (log-)softmax along one, a batched matmul (batch, row,
+    column and contraction shards, plain or strided; an expert FFN
+    resharded onto its experts), rows taken from a sharded table, a
+    pointwise op or a copy on a partial sum (all-reduced first), a view
+    that splits a head dimension finer than its KV groups or flattens a
+    sharded inner dimension, ``detach_``, an argmax -- the count
+    splits it as XLA does (``count.split_by_rule``); the rules also fix
+    one placement where torch versions' DTensor differ
+    (``launch/pinned.py`` pins two cells' counts); an op DTensor cannot
     place at all runs with its inputs replicated on the last mesh
     dimensions it needs (``count.replicated_ops``): listed, never silent;
   * temporaries are the peak live bytes of the program's storages beyond
@@ -237,7 +248,8 @@ class _Live:
 class _Count(TorchDispatchMode):
     """The counting mode: FLOPs (``torch.utils.flop_counter``'s formulas,
     an op without one counted through its decomposition, as
-    ``FlopCounterMode`` counts), the bytes read and written by every op
+    ``FlopCounterMode`` counts, and ``xla_flops`` for the leaves without
+    a formula), the bytes read and written by every op
     that is not a view, each collective's ring link bytes, the kernel
     wrappers' analytic charges (``charge``: {name: {calls, flops,
     bytes}}), and the live bytes (``live``).
@@ -261,6 +273,9 @@ class _Count(TorchDispatchMode):
     def __init__(self, *, note_off_meta: bool = True, parts: bool = False):
         super().__init__()
         self.flops = 0.0
+        self.flops_by: dict = {}    # class -> FLOPs (``xla_flops``)
+        self._chain: dict = {}      # storage -> [chain FLOPs an element,
+        #                              uses, charged again]
         self.bytes = 0
         self.off_meta: dict = {}
         self.note_off_meta = note_off_meta
@@ -285,6 +300,7 @@ class _Count(TorchDispatchMode):
         k["flops"] += flops
         k["bytes"] += nbytes
         self.flops += flops
+        self.flops_by["kernels"] = self.flops_by.get("kernels", 0.0) + flops
         self.bytes += nbytes
         for t in _tensors(inputs):
             self.live.use(t)
@@ -342,7 +358,10 @@ class _Count(TorchDispatchMode):
                 kind = "all-to-all"
             if kind == "all-reduce" and g > 1:
                 # one add an element, as XLA's cost analysis counts it
-                self.flops += sum(t.numel() for t in operands)
+                adds = sum(t.numel() for t in operands)
+                self.flops += adds
+                self.flops_by["collective"] = \
+                    self.flops_by.get("collective", 0.0) + adds
             self.collective(kind, float(sum(_nbytes(t) for t in operands)),
                             g)
         self._outputs(func, [t for t in tree_flatten(out)[0]
@@ -401,7 +420,55 @@ class _Count(TorchDispatchMode):
     def _flops(self, func, out, args, kwargs) -> None:
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
+            f, cls = formula(*args, **kwargs, out_val=out), "matmul"
+        else:
+            f, cls = xla_flops(func, args, kwargs, out)
+        if f:
+            self.flops += f
+            self.flops_by[cls] = self.flops_by.get(cls, 0.0) + f
+        if not _is_view(func):
+            dup = self._fused(func, out, args, kwargs)
+            if dup:
+                self.flops += dup
+                self.flops_by["fusion"] = self.flops_by.get("fusion",
+                                                            0.0) + dup
+
+    def _fused(self, func, out, args, kwargs) -> float:
+        """XLA's fusion duplicates an elementwise chain into each of its
+        consumers instead of writing its result once, and its cost analysis
+        charges every copy.  Each output of an elementwise op carries the
+        FLOPs an element of the chain that made it (its own plus those of
+        its inputs of its size); its first consumer is free, each later one
+        (and a softmax, which reads its input in its max and its exp
+        fusions) is charged the chain again.  A softmax's output carries
+        its input's chain and its own subtract and divide.  Returns the
+        FLOPs charged again."""
+        name = func._overloadpacket.__name__
+        o = _first(out)
+        n = _numel(o)
+        dup, carried, seen = 0.0, 0.0, set()
+        for t in tree_flatten((args, kwargs))[0]:
+            if not isinstance(t, torch.Tensor):
+                continue
+            key = t.untyped_storage()._cdata
+            c = self._chain.get(key)
+            if c is None or key in seen:
+                continue
+            seen.add(key)
+            c[1] += 2 if name in _SOFTMAX else 1
+            if c[1] > 1 and not c[2]:
+                dup += c[0] * t.numel()
+                c[2] = True
+            if t.numel() == n:
+                carried += c[0]
+        own = _chain_flops(func, args, kwargs, out)
+        if own is not None and o is not None and n and (own or carried):
+            key = o.untyped_storage()._cdata
+            if key not in self._chain:
+                weakref.finalize(o.untyped_storage(), self._chain.pop, key,
+                                 None)
+            self._chain[key] = [own + carried, 0, False]
+        return dup
 
     def _dtensor_op(self, func, args, kwargs):
         """Let DTensor dispatch ``func`` with this mode on (the next time it
@@ -416,7 +483,8 @@ class _Count(TorchDispatchMode):
             self._ops.pop()
 
     def _dispatch(self, func, args, kwargs):
-        rule = _RULES.get(func)
+        rule = _RULES.get(func) or (
+            _Count._pointwise if torch.Tag.pointwise in func.tags else None)
         if rule is not None:
             out = rule(self, func, args, kwargs)
             if out is not None:
@@ -428,6 +496,12 @@ class _Count(TorchDispatchMode):
         out = self._attempt(func, args, kwargs)
         if out is not _FAILED:
             return out
+        if func in _VIEWS:
+            out = self._reshard_view(func, args, kwargs)
+            if out is not _FAILED:
+                name = f"{func} (resharded)"
+                self.split[name] = self.split.get(name, 0) + 1
+                return out
         if not _writes_first_arg(func):
             mesh = _mesh_of(args, kwargs)
             for k in range(1, mesh.ndim):
@@ -444,7 +518,7 @@ class _Count(TorchDispatchMode):
         the last ``replicate`` mesh dimensions; ``_FAILED`` (nothing of the
         attempt charged) where DTensor has no placement for it."""
         from torch.distributed.tensor import Replicate
-        undo = (self.flops, self.bytes, len(self.colls))
+        mark = self._mark()
         inplace = _writes_first_arg(func) and isinstance(args[0], DTensor)
         if inplace:
             spec, local = args[0]._spec, args[0]._local_tensor
@@ -476,9 +550,17 @@ class _Count(TorchDispatchMode):
             if "Sharding propagation failed" not in str(e) and \
                     "sharding strategy" not in str(e):
                 raise
-        self.flops, self.bytes = undo[:2]
-        del self.colls[undo[2]:]
+        self._rewind(mark)
         return _FAILED
+
+    def _mark(self) -> tuple:
+        return self.flops, self.bytes, len(self.colls), dict(self.flops_by)
+
+    def _rewind(self, mark: tuple) -> None:
+        """Forget every charge made since ``mark``."""
+        self.flops, self.bytes = mark[:2]
+        del self.colls[mark[2]:]
+        self.flops_by = mark[3]
 
     @contextlib.contextmanager
     def _dtensor(self):
@@ -490,6 +572,153 @@ class _Count(TorchDispatchMode):
                 yield
         finally:
             self._inside -= 1
+
+    def _flatten_view(self, func, args, kwargs):
+        """A view that flattens a run of dimensions whose sharded dimension
+        is not the run's first (heads merged into a batch, a weight's heads
+        into its feature dimension): the merged dimension a plain shard of
+        the same size, moving nothing.  Torch 2.13's DTensor makes it a
+        strided shard, which 2.11's can neither make nor redistribute; the
+        count takes one placement for both (each device holds the same
+        number of rows; which rows does not change a count).  The split of
+        a dimension that several mesh dimensions shard (such a merged one
+        split back) gives each mesh dimension the first factor its size
+        divides, where DTensor would put them all on the first factor.
+        None where the view moves no such shard or is not a run of
+        flattens and splits."""
+        from torch.distributed.tensor import Shard
+        if _mesh_of(args, kwargs).size() == 1:
+            return None     # nothing to split
+        x = args[0]
+        if not isinstance(x, DTensor) or len(args) != 2 or kwargs or any(
+                _shard_dim(p) is not None and type(p) is not Shard
+                for p in x.placements):
+            return None
+        src, mesh = tuple(x.shape), x.device_mesh
+        dst = tuple(_full_shape(args[1], math.prod(src)))
+        groups = _view_groups(src, dst)
+        if groups is None:
+            return None
+        place, moved = list(x.placements), False
+        left = {}                  # a split dimension's factors still free
+        for m, p in enumerate(x.placements):
+            d = _shard_dim(p)
+            a, b = next((g for g in groups if d in g[0]), ((), ()))
+            if len(a) >= 2 and len(b) == 1 and d != a[0]:
+                place[m] = Shard(b[0])
+                moved = True
+            elif len(a) == 1 and len(b) >= 2 and sum(
+                    _shard_dim(q) == d for q in x.placements) > 1:
+                # a dimension several mesh dimensions shard, split: each
+                # takes the first factor (in order) its size divides
+                rest = left.setdefault(d, {k: dst[k] for k in b})
+                k = next((k for k in b if rest[k] % mesh.size(m) == 0),
+                         None)
+                if k is None:
+                    return None
+                rest[k] //= mesh.size(m)
+                place[m] = Shard(k)
+                moved = True
+        if not moved:
+            return None
+        local = list(dst)
+        for m, p in enumerate(place):
+            d = _shard_dim(p)
+            if d is not None:
+                if local[d] % mesh.size(m):
+                    return None
+                local[d] //= mesh.size(m)
+        with self:
+            out = func(x.to_local(), local)
+        with self._dtensor():
+            return DTensor.from_local(out, mesh, place, run_check=False,
+                                      shape=dst,
+                                      stride=_contiguous_stride(dst))
+
+    def _pointwise(self, func, args, kwargs):
+        """A pointwise op (or a copy) with a partial-sum input: the partial
+        all-reduced first, as XLA all-reduces a row-parallel product before
+        a norm, a residual add or a copy.  Torch 2.13's DTensor
+        reduce-scatters it onto a dimension of its own choosing where
+        2.11's all-reduces; the count takes XLA's.  None where the op keeps
+        the sum partial in every version (a sum or difference of partial
+        sums, a partial times or over a scalar), is in place, or nothing is
+        partial."""
+        from torch.distributed.tensor import Replicate
+        ins = [a for a in tree_flatten((args, kwargs))[0]
+               if isinstance(a, DTensor)]
+        if not ins or ins[0].device_mesh.size() == 1 or \
+                _writes_first_arg(func) or not any(
+                p.is_partial() for a in ins for p in a.placements):
+            return None
+        name = func._overloadpacket.__name__
+        if (name in ("add", "sub") and len({a.placements for a in ins}) == 1
+                and all(p.is_partial() for p in ins[0].placements)) or (
+                name in ("mul", "div", "neg") and len(ins) == 1):
+            return None
+        mark = self._mark()
+
+        def whole(a):
+            if not isinstance(a, DTensor) or not any(
+                    p.is_partial() for p in a.placements):
+                return a
+            with self._dtensor():
+                return a.redistribute(a.device_mesh, [
+                    Replicate() if p.is_partial() else p
+                    for p in a.placements])
+
+        out = self._attempt(func, *tree_map(whole, (args, kwargs)))
+        if out is _FAILED:
+            self._rewind(mark)
+            return None
+        return out
+
+    def _detach_(self, func, args, kwargs):
+        """``detach_`` of a DTensor: its local tensor's, in place.  Torch
+        2.11's DTensor has no strategy for it and its redistribution
+        dispatches ``detach_`` again."""
+        x = args[0]
+        if not isinstance(x, DTensor) or len(args) != 1 or kwargs:
+            return None
+        with self:
+            func(x._local_tensor)
+        return x
+
+    def _reshard_view(self, func, args, kwargs):
+        """A view DTensor cannot place: it splits a dimension sharded finer
+        than its first factor (a head dimension split into KV groups on a
+        model axis larger than the group count).  The shard moves (an
+        all-to-all) to the first dimension the view keeps whole that takes
+        it (the batch: a later flatten merges it as its leading dimension,
+        which every torch's DTensor shards alike), and the view runs there,
+        so each device keeps its share of the work, as XLA's partitioner
+        keeps it; DTensor would replicate the view and everything after
+        it.  ``_FAILED`` where no kept dimension takes the shard."""
+        from torch.distributed.tensor import Shard
+        x, shape = args[0], list(args[1])
+        if not isinstance(x, DTensor) or len(args) != 2 or kwargs:
+            return _FAILED
+        mesh = x.device_mesh
+        kept = []
+        for i, (a, b) in enumerate(zip(x.shape, shape)):
+            if a != b:
+                break
+            kept.append(i)
+        place = list(x.placements)
+        for m, p in enumerate(place):
+            if type(p) is not Shard or p.dim in kept:
+                continue
+            free = [d for d in kept
+                    if x.shape[d] % (mesh.size(m) * math.prod(
+                        mesh.size(k) for k, q in enumerate(place)
+                        if _shard_dim(q) == d)) == 0]
+            if not free:
+                return _FAILED
+            place[m] = Shard(free[0])
+        with self._dtensor():
+            x = x.redistribute(mesh, place)
+        out = self._attempt(func, (x, args[1]), kwargs)
+        return out
 
     def _replicated(self, func, args, kwargs):
         """``func`` where DTensor has no placement for it: a scatter-add
@@ -547,9 +776,17 @@ class _Count(TorchDispatchMode):
             target, indices, source = args[:3]
             accumulate = (args[3] if len(args) > 3 else
                           kwargs.get("accumulate", False))
-            if not accumulate or len(indices) != 1:
+            if not accumulate or len(indices) != 1 or indices[0] is None \
+                    or indices[0].dtype == torch.bool:
                 return None
             dim, index, args, kwargs = 0, indices[0], args[:4], {}
+            if index.dim() > 1 and isinstance(index, DTensor) and \
+                    isinstance(source, DTensor):
+                # an index of several dimensions (an embedding's gradient):
+                # the index and the source's leading dimensions flattened
+                with self._dtensor():
+                    source = source.reshape(-1, *source.shape[index.dim():])
+                    index = index.reshape(-1)
         else:
             target, dim, index, source = args[:4]
         if len(args) > 4 or kwargs or index.dim() != 1:
@@ -566,7 +803,7 @@ class _Count(TorchDispatchMode):
             target_d, index_d, source_d = dt(target), dt(index), dt(source)
         tp, ip, sp = (target_d.placements, index_d.placements,
                       source_d.placements)
-        rows_over, summed, src_want = [], [], []
+        rows_over, summed, src_want, src_over = [], [], [], []
         for m in range(mesh.ndim):
             if tp[m] == Shard(dim) and ip[m].is_replicate():
                 rows_over.append(m)           # masked to the local rows
@@ -581,10 +818,17 @@ class _Count(TorchDispatchMode):
             elif sp[m].is_partial():
                 summed.append(m)
                 src_want.append(sp[m])
+            elif type(sp[m]) is Shard and sp[m].dim == dim:
+                # the source's rows split, the index whole: each device adds
+                # the rows it holds under their slice of the index
+                summed.append(m)
+                src_over.append(m)
+                src_want.append(sp[m])
             else:
                 src_want.append(Replicate())
         n = math.prod(mesh.size(m) for m in rows_over)
-        if target.shape[dim] % n:
+        if target.shape[dim] % n or source.shape[dim] % math.prod(
+                mesh.size(m) for m in src_over):
             return None
         with self._dtensor():
             src = source_d.redistribute(mesh, src_want).to_local()
@@ -593,6 +837,9 @@ class _Count(TorchDispatchMode):
         rows = base.shape[dim]
         with self:
             idx = idx.long()
+            if src_over:
+                # rank 0's rows of the source are its first ones
+                idx = idx.narrow(0, 0, src.shape[dim])
             if rows_over:
                 # rank 0's slice of ``dim`` starts at row 0
                 ok = (idx >= 0) & (idx < rows)
@@ -730,45 +977,158 @@ class _Count(TorchDispatchMode):
 
 
     def _bmm(self, func, args, kwargs):
-        """A batched matmul whose operands are, on each mesh dimension,
-        either replicated or sharded on their batch dimension (a plain or
-        a strided shard, the layouts a merged batch dimension takes): run
-        per device on its batch shard, a replicated operand sliced to it
-        locally, as XLA keeps a batch dimension sharded.  DTensor would
-        all-gather a strided operand to match a replicated one.  None
-        where the placements do not fit."""
+        """A batched matmul ``a (B, M, K) @ b (B, K, N)`` split as XLA's
+        partitioner splits a dot, mesh dimension by mesh dimension (plain
+        and strided shards alike -- the layouts a merged dimension takes):
+
+          * the batch sharded by either operand: both run on their batch
+            shard, a replicated operand sliced to it locally, an operand
+            sharded on another dimension resharded onto the batch first (an
+            all-to-all: an expert-parallel FFN, its weights split by expert
+            and its dispatched tokens by feature);
+          * ``a``'s rows or ``b``'s columns sharded: kept, the other operand
+            whole (all-gathered where it is sharded on the contraction and
+            is the smaller);
+          * the contraction sharded by one operand: the other sliced to it
+            locally, the product a partial sum.
+
+        DTensor would all-gather a strided or row-sharded operand to match
+        the other, or shard the contraction of an expert FFN and all-reduce
+        the product.  None where an operand is a partial sum, where both
+        already agree, or where the placements fit none of these."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
         if _mesh_of(args, kwargs).size() == 1:
             return None     # nothing to split
         if kwargs or len(args) != 2 or not all(
                 isinstance(a, DTensor) for a in args):
             return None
-        mesh = args[0].device_mesh
-        place = []
-        for m in range(mesh.ndim):
-            ps = [a.placements[m] for a in args]
-            if any(p.is_partial() for p in ps):
-                return None
-            batch = [p for p in ps if not p.is_replicate()]
-            if any(getattr(p, "dim", None) != 0 for p in batch):
-                return None
-            place.append(batch[0] if batch else ps[0])
-        if all(a.placements == tuple(place) for a in args):
+        a, b = args
+        mesh = a.device_mesh
+        if a.placements == b.placements:
             return None                       # DTensor's own case
-        n = math.prod(mesh.size(m) for m, p in enumerate(place)
-                      if not p.is_replicate())
-        if args[0].shape[0] % n:
+        want = [list(a.placements), list(b.placements)]
+        out, batch, contract = [], [], []
+        small = [_nbytes(a) <= _nbytes(b), _nbytes(b) < _nbytes(a)]
+        for m in range(mesh.ndim):
+            pa, pb = a.placements[m], b.placements[m]
+            if pa.is_partial() or pb.is_partial():
+                return None
+            da, db = _shard_dim(pa), _shard_dim(pb)
+            if 0 in (da, db):
+                bp = pa if da == 0 else pb
+                for j, (q, d) in enumerate(((pa, da), (pb, db))):
+                    if d is not None and q != bp:
+                        if type(bp) is not Shard:
+                            return None
+                        want[j][m] = bp
+                batch.append(m)
+                out.append(bp)
+            elif da is None and db is None:
+                out.append(Replicate())
+            elif da == 1 and (db is None or (db == 1 and small[1])):
+                want[1][m] = Replicate()
+                out.append(pa)
+            elif db == 2 and (da is None or (da == 2 and small[0])):
+                want[0][m] = Replicate()
+                out.append(pb)
+            elif da == 1 and db == 2:
+                want[int(small[1])][m] = Replicate()
+                out.append(pb if small[0] else pa)
+            elif (da, db) in ((2, None), (None, 1)) or (
+                    da == 2 and db == 1 and pa == pb):
+                contract.append(m)
+                out.append(Partial())
+            else:
+                return None
+        nb = math.prod(mesh.size(m) for m in batch)
+        nk = math.prod(mesh.size(m) for m in contract)
+        if a.shape[0] % nb or a.shape[2] % nk:
             return None
-        # rank 0's batch shard: the first rows of each operand's shard
-        rows = args[0].shape[0] // n
+        if [list(a.placements), list(b.placements)] != want:
+            with self._dtensor():
+                a, b = (t.redistribute(mesh, w) for t, w in zip((a, b), want))
+        rows, k = a.shape[0] // nb, a.shape[2] // nk
         with self:
-            out = torch.bmm(*(a.to_local().narrow(0, 0, rows)
-                              for a in args))
-        shape = (args[0].shape[0], *out.shape[1:])
+            # rank 0's batch and contraction shards are the first ones
+            out_l = torch.bmm(a.to_local().narrow(0, 0, rows).narrow(2, 0, k),
+                              b.to_local().narrow(0, 0, rows).narrow(1, 0, k))
+        shape = (a.shape[0], a.shape[1], b.shape[2])
+        with self._dtensor():
+            return DTensor.from_local(out_l, mesh, out, run_check=False,
+                                      shape=shape,
+                                      stride=_contiguous_stride(shape))
+
+    def _take_rows(self, func, args, kwargs):
+        """``index(self, [index])`` / ``index_select(self, 0, index)``: rows
+        of ``self`` taken by an integer index, split on each mesh dimension
+        as XLA splits a gather:
+
+          * the index sharded (``self`` replicated): each device takes the
+            rows its index shard names, the result sharded as the index;
+          * ``self``'s rows sharded (the index replicated), ``self`` a
+            float tensor: each device takes the rows that fall in its slice
+            (the others zero), the result a partial sum (a vocab-sharded
+            embedding lookup);
+          * ``self`` sharded on another dimension: the result sharded on
+            that dimension (after the index's).
+
+        Torch 2.11's and 2.13's DTensor place these differently (2.11
+        replicates the index or all-gathers the table); the rule fixes
+        one placement for both.  None where the placements do not fit."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        if _mesh_of(args, kwargs).size() == 1:
+            return None     # nothing to split
+        if func is torch.ops.aten.index_select.default:
+            if len(args) != 3 or kwargs or args[1] != 0:
+                return None
+            base, index = args[0], args[2]
+        else:
+            if len(args) != 2 or kwargs or len(args[1]) != 1 or \
+                    args[1][0] is None:
+                return None
+            base, index = args[0], args[1][0]
+        if not isinstance(base, DTensor) or index.dtype == torch.bool:
+            return None
+        mesh = base.device_mesh
+        if not isinstance(index, DTensor):
+            with self._dtensor():
+                index = DTensor.from_local(index, mesh,
+                                           [Replicate()] * mesh.ndim,
+                                           run_check=False)
+        place, masked = [], []
+        for m, (pb, pi) in enumerate(zip(base.placements, index.placements)):
+            db, di = _shard_dim(pb), _shard_dim(pi)
+            if pb.is_partial() or pi.is_partial():
+                return None
+            if db is None:
+                place.append(pi)
+            elif di is not None or type(pb) is not Shard:
+                return None
+            elif db == 0:
+                if not base.dtype.is_floating_point:
+                    return None           # ids and positions: DTensor's
+                masked.append(m)
+                place.append(Partial())
+            else:
+                place.append(Shard(index.dim() + db - 1))
+        rows = base.shape[0] // math.prod(mesh.size(m) for m in masked)
+        if base.shape[0] % math.prod(mesh.size(m) for m in masked):
+            return None
+        with self:
+            li, lb = index.to_local(), base.to_local()
+            if masked:
+                # rank 0's slice of the rows starts at row 0
+                ok = (li >= 0) & (li < rows)
+                li = torch.clamp(li, 0, rows - 1)
+            out = func(lb, 0, li) if len(args) == 3 else func(lb, [li])
+            if masked:
+                out = torch.where(ok.reshape(*ok.shape, *[1] * (
+                    out.dim() - ok.dim())), out, 0)
+        shape = (*index.shape, *base.shape[1:])
         with self._dtensor():
             return DTensor.from_local(out, mesh, place, run_check=False,
                                       shape=shape,
                                       stride=_contiguous_stride(shape))
-
 
     def _arg_reduction(self, func, args, kwargs):
         """``argmax`` / ``argmin`` along a dimension no mesh dimension
@@ -794,6 +1154,49 @@ class _Count(TorchDispatchMode):
         with self._dtensor():
             return DTensor.from_local(out, x.device_mesh, place,
                                       run_check=False)
+
+
+def _full_shape(shape, numel: int) -> list:
+    """A view's target shape with its -1 resolved."""
+    shape = list(shape)
+    if -1 in shape:
+        rest = math.prod(n for n in shape if n != -1)
+        shape[shape.index(-1)] = numel // rest if rest else 0
+    return shape
+
+
+def _view_groups(src, dst):
+    """A reshape of ``src`` to ``dst`` as runs [(source dims, target
+    dims)] of equal size, size-1 dimensions left out -- each run a
+    flatten, a split or one dimension kept -- or None where a run is both
+    (or a size is 0)."""
+    if 0 in src or 0 in dst or math.prod(src) != math.prod(dst):
+        return None
+    si = [k for k, n in enumerate(src) if n != 1]
+    di = [k for k, n in enumerate(dst) if n != 1]
+    groups, i, j = [], 0, 0
+    while i < len(si) and j < len(di):
+        a, b, pa, pb = [si[i]], [di[j]], src[si[i]], dst[di[j]]
+        i, j = i + 1, j + 1
+        while pa != pb:
+            if pa < pb:
+                pa *= src[si[i]]
+                a.append(si[i])
+                i += 1
+            else:
+                pb *= dst[di[j]]
+                b.append(di[j])
+                j += 1
+        if len(a) > 1 and len(b) > 1:
+            return None
+        groups.append((a, b))
+    return groups
+
+
+def _shard_dim(p):
+    """The tensor dimension a plain or strided shard splits; None for a
+    replicated or partial placement."""
+    return None if p.is_replicate() or p.is_partial() else p.dim
 
 
 def _contiguous_stride(shape) -> tuple:
@@ -829,6 +1232,8 @@ def _group_over(mesh, dims: list):
 
 
 _GROUPS: dict = {}
+_VIEWS = {torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default,
+          torch.ops.aten.reshape.default}
 _INDEX_PUT = {torch.ops.aten.index_put_.default,
               torch.ops.aten.index_put.default}
 _SCATTER = {torch.ops.aten.scatter_add.default,
@@ -844,12 +1249,143 @@ _RULES = {**{op: _Count._scatter_add for op in (
     **{op: _Count._sharded_dim for op in (
         torch.ops.aten.gather.default, *_SCATTER)},
     torch.ops.aten.bmm.default: _Count._bmm,
+    **{op: _Count._flatten_view for op in _VIEWS},
+    torch.ops.aten.detach_.default: _Count._detach_,
+    torch.ops.aten.index.Tensor: _Count._take_rows,
+    torch.ops.aten.index_select.default: _Count._take_rows,
+    torch.ops.aten._to_copy.default: _Count._pointwise,
     torch.ops.aten.argmax.default: _Count._arg_reduction,
     torch.ops.aten.argmin.default: _Count._arg_reduction,
     **{op: _Count._softmax for op in (
         torch.ops.aten._log_softmax.default, torch.ops.aten._softmax.default,
         *_SOFTMAX_BACKWARD)}}
 _FAILED = object()
+
+
+# XLA's ``HloCostAnalysis`` rules for what ``flop_registry`` leaves out, by
+# aten op: an elementwise op is one FLOP an output element (a compare, a
+# select and a convert included); a transcendental (exp, log, tanh,
+# logistic, sqrt, rsqrt, sin, cos, power, ...) none -- XLA counts those
+# apart; a reduction one an input element it folds away (input elements
+# less output elements); a scatter-add one an update; a sort n ceil(log2 n);
+# data movement (views, copies, slices, gathers, concatenation, padding,
+# fills) none.  A fused op is charged the HLO it lowers to in the JAX
+# package: softmax max, subtract, exp, sum, divide; its backward multiply,
+# sum, subtract, multiply; ``x ** e`` for an integer e XLA's square-and-
+# multiply chain.
+_EW1 = {
+    "add", "add_", "sub", "sub_", "rsub", "mul", "mul_", "div", "div_",
+    "neg", "abs", "where", "maximum", "minimum", "clamp", "clamp_",
+    "clamp_min", "clamp_max", "eq", "ne", "lt", "le", "gt", "ge",
+    "logical_and", "logical_or", "logical_not", "logical_xor",
+    "bitwise_and", "bitwise_or", "bitwise_not", "bitwise_xor", "sign",
+    "reciprocal", "masked_fill", "masked_fill_", "relu", "silu", "floor",
+    "ceil", "round", "trunc", "remainder", "fmod", "square", "isnan",
+    "isinf", "isfinite", "nan_to_num", "heaviside"}
+_TRANSCENDENTAL = {
+    "exp", "exp2", "log", "log2", "log10", "log1p", "expm1", "tanh",
+    "sigmoid", "sin", "cos", "tan", "sqrt", "rsqrt", "erf", "erfinv",
+    "atan", "atan2", "asin", "acos", "sinh", "cosh", "asinh", "acosh",
+    "atanh"}
+# an output element's FLOPs for a fused elementwise op (its JAX lowering)
+_EW_FUSED = {"tanh_backward": 3, "sigmoid_backward": 3, "silu_backward": 5,
+             "threshold_backward": 1}
+_REDUCE = {"sum", "amax", "amin", "max", "min", "prod", "any", "all",
+           "argmax", "argmin", "nansum"}
+
+
+def _numel(x) -> int:
+    return x.numel() if isinstance(x, torch.Tensor) else 0
+
+
+def _first(x):
+    return next((t for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)),
+                None)
+
+
+def _int_pow(e: int) -> int:
+    """The multiplies (and a divide for e < 0) of XLA's ``integer_pow``."""
+    if e == 0:
+        return 0
+    m = abs(e)
+    return (m.bit_length() - 1) + (bin(m).count("1") - 1) + (e < 0)
+
+
+_SOFTMAX = {"_softmax", "_log_softmax"}
+
+
+def _chain_flops(func, args, kwargs, out) -> float | None:
+    """An elementwise op's own FLOPs an output element (a softmax's
+    subtract and divide), or None for an op whose result XLA writes once: a
+    matmul, a reduction, data movement, and a transcendental, which XLA's
+    fusion does not duplicate."""
+    name = func._overloadpacket.__name__
+    if name in _SOFTMAX:
+        return 2.0
+    if name in _TRANSCENDENTAL:
+        return None
+    if name in _EW1 or name in _EW_FUSED or name in ("pow", "_to_copy"):
+        n = _numel(_first(out))
+        f, cls = xla_flops(func, args, kwargs, out)
+        if name == "_to_copy" and not cls:
+            return None                       # a copy, not a convert
+        return f / n if n else 0.0
+    return None
+
+
+def xla_flops(func, args, kwargs, out) -> tuple[float, str]:
+    """The FLOPs XLA's cost analysis charges the HLO an aten op without a
+    ``flop_registry`` formula lowers to, and their class ("elementwise",
+    "reduction" or "" for none)."""
+    name = func._overloadpacket.__name__
+    o, x = _first(out), _first(args)
+    n, i = _numel(o), _numel(x)
+    if name in _EW1:
+        return float(n), "elementwise"
+    if name in _EW_FUSED:
+        return float(_EW_FUSED[name] * n), "elementwise"
+    if name in ("_to_copy", "copy_"):
+        src = args[1] if name == "copy_" else x
+        same = isinstance(src, torch.Tensor) and o is not None and \
+            src.dtype == o.dtype
+        return (0.0, "") if same else (float(n), "elementwise")
+    if name == "pow":
+        e = args[1] if len(args) > 1 else kwargs.get("exponent")
+        if isinstance(e, (int, float)) and float(e).is_integer() and \
+                isinstance(x, torch.Tensor):
+            return float(_int_pow(int(e)) * n), "elementwise"
+        return 0.0, ""
+    if name in _TRANSCENDENTAL:
+        return 0.0, ""
+    if name in _REDUCE:
+        return float(max(i - n, 0)), "reduction"
+    if name in ("mean", "nanmean"):
+        return float(max(i - n, 0) + n), "reduction"
+    if name in ("_softmax", "_log_softmax"):
+        # max and sum reduce, subtract, divide (log: subtract the log-sum)
+        rows = i // max(x.shape[args[1]] if x.dim() else 1, 1)
+        return float(2 * (i - rows) + 2 * i), "reduction"
+    if name in ("_softmax_backward_data", "_log_softmax_backward_data"):
+        g = args[0]
+        rows = i // max(g.shape[args[2]] if g.dim() else 1, 1)
+        soft = name == "_softmax_backward_data"
+        return float((i - rows) + (3 if soft else 2) * i), "reduction"
+    if name == "logsumexp":
+        return float(2 * (i - n) + i + n), "reduction"
+    if name in ("cumsum", "cumprod"):
+        return float(i), "reduction"
+    if name in ("scatter_add", "scatter_add_", "index_add", "index_add_",
+                "scatter_reduce", "scatter_reduce_"):
+        src = args[3] if len(args) > 3 else kwargs.get("source",
+                                                       kwargs.get("src"))
+        return float(_numel(src)), "reduction"
+    if name in ("index_put", "index_put_"):
+        acc = args[3] if len(args) > 3 else kwargs.get("accumulate", False)
+        return (float(_numel(args[2])), "reduction") if acc else (0.0, "")
+    if name in ("sort", "argsort"):
+        return float(i * max(math.ceil(math.log2(i)), 0) if i > 1 else 0), \
+            "reduction"
+    return 0.0, ""
 
 
 class _Flops(TorchDispatchMode):
@@ -888,6 +1424,7 @@ class Count:
     replicated: dict = field(default_factory=dict)
     sites: dict = field(default_factory=dict)
     split: dict = field(default_factory=dict)
+    flops_by: dict = field(default_factory=dict)
 
 
 def _local_bytes(args, used: set, specs=None, mesh=None) -> int:
@@ -975,7 +1512,7 @@ def count(step_fn, args, *, meta: bool = True, parts: bool = False,
     return Count(cost, {d: list(ops.values())
                         for d, ops in mode.off_meta.items()},
                  mode.kernels, mode.parts, mode.ops if parts else None,
-                 local_out, mode.replicated, sites, mode.split)
+                 local_out, mode.replicated, sites, mode.split, mode.flops_by)
 
 
 def count_step(step_fn, args) -> tuple[RA.Cost, dict]:
@@ -1015,7 +1552,7 @@ def count_block(cell, device=None, seed: int = 0, data_device=None):
               "block": {**block.info, **block.facts(), "device": str(dev),
                         "seed": seed, "peak_memory_bytes": peak},
               "count": {"kernels": c.kernels, "parts": c.parts,
-                        "top_ops": dict(top)}}
+                        "top_ops": dict(top), "flops_by": c.flops_by}}
     return fields, c, block
 
 
@@ -1114,7 +1651,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *, builder=None,
                 programs = 1
             rec["compile_s"] = time.perf_counter() - t0
             rec["off_meta_ops"] = c.off_meta
-            rec["count"] = {"kernels": c.kernels,
+            rec["count"] = {"kernels": c.kernels, "flops_by": c.flops_by,
                             "replicated_ops": c.replicated,
                             "split_by_rule": c.split,
                             "collectives_at": _top(c.sites)}

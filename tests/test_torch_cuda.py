@@ -24,9 +24,16 @@ from repro_torch.kernels.embedding_bag import ops as eb  # noqa: E402
 from repro_torch.kernels.filtered_topk import ops as ft  # noqa: E402
 from repro_torch.kernels.gather_distance import ops as gd  # noqa: E402
 from repro_torch.kernels.pq_adc import ops as pq  # noqa: E402
-from repro_torch.parity import topk_mismatch  # noqa: E402
+from repro_torch.parity import tie_free, topk_mismatch  # noqa: E402
 
 TOL = 1e-5
+# the tests this process ran, in order (a failure report names them)
+_ORDER: list = []
+
+
+@pytest.fixture(autouse=True)
+def _record_order(request):
+    _ORDER.append(request.node.name)
 
 
 @pytest.fixture
@@ -1113,6 +1120,28 @@ def _card_sharded(mesh_shape=(1, 4), seed=31, n=2048, d=16):
     return be, vecs, attrs, qs, [pool[i % 3] for i in range(len(qs))]
 
 
+def _brute_report(cpu, card, vecs, qs, shard_rows: int) -> str:
+    """Each pair whose distance the card and the CPU mesh disagree on
+    (beyond ``TOL``), or whose tie-free id differs: its row, rank, ids, the
+    shard that holds the card's id, both distances and the L2 recomputed in
+    float64 from the same vectors; then the tests this process ran."""
+    free = tie_free(cpu.dists.astype(np.float64), TOL, TOL)
+    lines = ["row rank cpu_id card_id shard cpu_dist card_dist f64_dist"]
+    for r, j in zip(*np.nonzero(
+            ~np.isclose(card.dists, cpu.dists, rtol=TOL, atol=TOL)
+            | (free & (card.ids != cpu.ids)))):
+        i = int(card.ids[r, j])
+        f64 = (float(np.sqrt(((vecs[i].astype(np.float64)
+                               - qs[r].astype(np.float64)) ** 2).sum()))
+               if i >= 0 else float("inf"))
+        lines.append(f"{r} {j} {int(cpu.ids[r, j])} {i} "
+                     f"{i // shard_rows if i >= 0 else -1} "
+                     f"{float(cpu.dists[r, j])!r} {float(card.dists[r, j])!r} "
+                     f"{f64!r}")
+    lines.append("test order: " + ", ".join(_ORDER))
+    return "\n".join(lines)
+
+
 @pytest.mark.cuda
 def test_sharded_brute_on_card_matches_cpu(dev):
     """A (1, 4) mesh on the card: the f32 and PQ brute scans launch their
@@ -1121,7 +1150,7 @@ def test_sharded_brute_on_card_matches_cpu(dev):
     CPU's bits; the graph route launches a gather on every shard."""
     from repro_torch.core import SearchOptions, ShardedBackend, router
     from repro_torch.core.distributed import make_mesh
-    be, _, _, qs, flts = _card_sharded()
+    be, vecs, _, qs, flts = _card_sharded()
     cpu = ShardedBackend(make_mesh((1, 4), device="cpu"), be.sharded,
                          be.schema, sel_cfg=be.sel_cfg, codebook=be.codebook,
                          rerank=be.rerank)
@@ -1133,7 +1162,8 @@ def test_sharded_brute_on_card_matches_cpu(dev):
         rh = router.execute(cpu, qs, flts, opts)
         mm = topk_mismatch(rh.ids, rh.dists, rc.ids, rc.dists,
                            rtol=TOL, atol=TOL)
-        assert mm["dist_mismatch"] == mm["id_mismatch"] == 0, (use_pq, mm)
+        assert mm["dist_mismatch"] == mm["id_mismatch"] == 0, (
+            use_pq, mm, _brute_report(rh, rc, vecs, qs, be.sharded.shard_rows))
     opts = SearchOptions(k=10, ef=64)
     K.reset_launch_counts()
     rc = router.execute(be, qs, flts, opts)

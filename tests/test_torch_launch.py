@@ -363,7 +363,9 @@ def test_serve_graph_cell_counts_one_block_on_real_tensors(graph_records):
     kern = rec["count"]["kernels"]
     assert set(kern) == {"gather_distance"}
     assert kern["gather_distance"]["calls"] > b["waves"]
-    assert r["flops_per_dev"] == kern["gather_distance"]["flops"]
+    flops_by = rec["count"]["flops_by"]
+    assert flops_by["kernels"] == kern["gather_distance"]["flops"]
+    assert r["flops_per_dev"] == sum(flops_by.values())
     parts = rec["count"]["parts"]
     assert {"estimate", "descent", "wave", "visited", "pools",
             "traversal", "shard merge"} <= set(parts)
@@ -528,5 +530,7 @@ def test_meta_serve_brute_charges_filtered_topk(monkeypatch):
     rows, q = RED.n // 4, 16 // 2
     assert k["calls"] == 8
     assert k["flops"] == 8 * 2.0 * q * rows * RED.dim
-    assert rec["roofline"]["flops_per_dev"] == k["flops"] / 8
+    flops_by = rec["count"]["flops_by"]
+    assert flops_by["kernels"] == k["flops"]
+    assert rec["roofline"]["flops_per_dev"] == sum(flops_by.values()) / 8
     assert rec["off_meta_ops"] == {}
