@@ -284,10 +284,13 @@ class FavorIndex:
                                 device=self.device)
 
     # -- online search --------------------------------------------------------
-    def query(self, queries, filters,
-              opts: SearchOptions | None = None) -> SearchResult:
-        """Typed search API: one SearchOptions drives routing + execution."""
-        return execute(self.backend, queries, filters, opts or SearchOptions())
+    def query(self, queries, filters, opts: SearchOptions | None = None, *,
+              obs=None) -> SearchResult:
+        """Typed search API: one SearchOptions drives routing + execution;
+        ``obs`` (a ``repro_torch.obs.Obs``) traces the batch as
+        ``router.execute`` does."""
+        return execute(self.backend, queries, filters, opts or SearchOptions(),
+                       obs=obs)
 
     def search(self, queries, filters, k: int = 10, ef: int = 100, *,
                pbar_min: float = 0.5, gamma: float = 1.0,

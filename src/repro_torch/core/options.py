@@ -264,10 +264,13 @@ class ObsSpec:
     0.0: they cost real work and are bench/diagnostic knobs, not
     steady-state ones.
 
-    ``kernel_annotations`` wraps backend dispatches in host-side
-    ``torch.profiler.record_function`` ranges named by route and bucket, so
-    a ``torch.profiler`` capture attributes device time to kernels by
-    route (``repro_torch.obs.profiling``).
+    ``kernel_annotations`` makes every span of a sampled trace, and each
+    wait on the device inside it, a host-side
+    ``torch.profiler.record_function`` range named by its path
+    (``favor/graph/search``, ``repro_torch.obs.trace``), and wraps backend
+    dispatches in ranges of their own (``repro_torch.obs.profiling``), so a
+    ``torch.profiler`` capture attributes device time and idle gaps to
+    router stages and routes.
 
     ``latency_buckets`` are the shared histogram upper bounds (seconds)
     for request latency and per-stage timings.

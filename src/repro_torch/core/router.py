@@ -27,6 +27,7 @@ from . import filters as F
 from . import selector
 from .options import ROUTES, SearchOptions
 from ..device import to_host as _host
+from ..obs.trace import host_wait
 
 
 @dataclass
@@ -106,24 +107,29 @@ class PendingExecution:
     def _finish(self, hook_lock) -> SearchResult:
         ids, dists, miss = self.ids, self.dists, self.miss
         gi, bi = self.gi, self.bi
-        if self.graph_out is not None:
-            out = self.graph_out
-            ids[miss[gi]] = _host(out["ids"])[:len(gi)]
-            dists[miss[gi]] = _host(out["dists"])[:len(gi)]
-            if "hops" in out:
-                self.hops[miss[gi]] = _host(out["hops"])[:len(gi)]
-                self.path_td[miss[gi]] = _host(out["path_td"])[:len(gi)]
+        # the .cpu() copies wait for the in-flight device work: the trace's
+        # ``finish_wait_ms``
+        with (self.tr.wait("finish_wait_ms", "favor/finish/wait")
+              if self.tr is not None else nullcontext()):
+            graph = ({k: _host(v) for k, v in self.graph_out.items()}
+                     if self.graph_out is not None else None)
+            brute = (tuple(_host(v) for v in self.brute_out)
+                     if self.brute_out is not None else None)
+        if graph is not None:
+            ids[miss[gi]] = graph["ids"][:len(gi)]
+            dists[miss[gi]] = graph["dists"][:len(gi)]
+            if "hops" in graph:
+                self.hops[miss[gi]] = graph["hops"][:len(gi)]
+                self.path_td[miss[gi]] = graph["path_td"][:len(gi)]
             else:
                 self.graph_diag = False
-            if "waves" in out:
-                self.waves[miss[gi]] = _host(out["waves"])[:len(gi)]
+            if "waves" in graph:
+                self.waves[miss[gi]] = graph["waves"][:len(gi)]
             else:
                 self.waves_diag = False
-        if self.brute_out is not None:
-            bid, bd = self.brute_out
-            ids[miss[bi]] = _host(bid)[:len(bi)]
-            dists[miss[bi]] = _host(bd)[:len(bi)]
-        # the .cpu() copies above waited for the in-flight device work
+        if brute is not None:
+            ids[miss[bi]] = brute[0][:len(bi)]
+            dists[miss[bi]] = brute[1][:len(bi)]
         elapsed = time.perf_counter() - self.t0
         with (hook_lock if hook_lock is not None else nullcontext()):
             record = getattr(self.backend, "record_result", None)
@@ -180,12 +186,15 @@ def broadcast_filters(filters, batch: int) -> list:
 def compile_programs(filters, schema: F.Schema, batch: int,
                      width: int = 8, *, device) -> dict:
     """Compile + stack one DNF program per query into tensors on
-    ``device``: valid/flo/fhi float32, imask int64 (uint32 bitmasks)."""
+    ``device``: valid/flo/fhi float32, imask int64 (uint32 bitmasks).
+    Inside a traced ``compile`` span the upload is its ``upload_ms``."""
     filters = broadcast_filters(filters, batch)
     progs = [F.compile_filter(f, schema, width) for f in filters]
     stacked = F.stack_programs(progs)
     stacked["imask"] = stacked["imask"].astype(np.int64)
-    return {k: torch.as_tensor(v, device=device) for k, v in stacked.items()}
+    with host_wait("upload_ms", "favor/compile/upload"):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in stacked.items()}
 
 
 def plan_routes(p_hat: np.ndarray, lam: float,
@@ -244,8 +253,11 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
     ``obs`` is an optional ``repro_torch.obs.Obs``: when its tracer samples
     this batch, every stage below runs inside a span (wall time, route,
     bucket shape, pad fraction, cache hits), and -- when the spec enables
-    kernel annotations -- the route dispatches run inside
-    ``torch.profiler.record_function`` ranges named by route and bucket.
+    kernel annotations -- inside a ``torch.profiler.record_function`` range
+    named by the span's path (``favor/graph/search``).  The host's waits on
+    the device are span attributes: ``compile``'s ``upload_ms``,
+    ``estimate``'s ``read_ms``, the trace's ``finish_wait_ms``; the graph
+    traversal adds its wave counters to ``search`` (``core.search``).
     Obs hooks only *observe*; results are bit-identical with obs absent,
     disabled, or sampled out.
 
@@ -271,7 +283,6 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
             return nullcontext()
     else:
         _span = tr.span
-    _ann = obs.annotate if obs is not None else (lambda name: nullcontext())
 
     with _span("compile", rows=b):
         programs = compile_programs(filters, backend.schema, b, device=dev)
@@ -323,15 +334,15 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
         with _span("estimate", rows=len(miss)) as sp:
             if spec is None:
                 batching.record(registry, "estimate", len(miss), len(miss))
-                mp_hat = _host(backend.estimate(mprogs))
+                est = backend.estimate(mprogs)
             else:
                 eprogs, evalid = batching.pad_programs(spec, mprogs)
                 batching.record(registry, "estimate", len(evalid), len(miss))
                 if sp is not None:
                     sp.attrs["bucket"] = int(len(evalid))
-                with _ann(f"favor/estimate/b{len(evalid)}"):
-                    mp_hat = _host(backend.estimate(
-                        eprogs, valid=evalid))[:len(miss)]
+                est = backend.estimate(eprogs, valid=evalid)
+            with host_wait("read_ms", "favor/estimate/read"):
+                mp_hat = _host(est)[:len(miss)]
         with _span("route") as sp:
             plan = plan_routes(mp_hat, backend.sel_cfg.lam, opts.force)
             if sp is not None:
@@ -359,7 +370,7 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
                     gspan.attrs["bucket"] = bucket
                     gspan.attrs["pad_frac"] = 1.0 - len(gi) / bucket
                 batching.record(registry, "graph", bucket, len(gi), opts)
-                with _span("search"), _ann(f"favor/graph/b{bucket}"):
+                with _span("search"):
                     pend.graph_out = backend.search_graph(
                         gq, gprogs, torch.as_tensor(gp, device=dev), opts,
                         valid=gvalid)
@@ -378,7 +389,7 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
                     bspan.attrs["bucket"] = bucket
                     bspan.attrs["pad_frac"] = 1.0 - len(bi) / bucket
                 batching.record(registry, "brute", bucket, len(bi), opts)
-                with _span("search"), _ann(f"favor/brute/b{bucket}"):
+                with _span("search"):
                     pend.brute_out = backend.search_brute(bq, bprogs, opts,
                                                           valid=bvalid)
 

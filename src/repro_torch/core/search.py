@@ -34,7 +34,17 @@ The counterpart of the JAX package's ``core/search.py``:
    (every per-query leaf of the scorer state is sliced with them, the
    scorer's ``shared_state`` is not).  Results are identical to the
    single-stage loop because every per-lane op is row-wise and every scorer
-   is bit-stable across batch widths; it sets the ``waves`` diagnostic.
+   is bit-stable across batch widths; it sets the ``waves`` diagnostic;
+ * inside a sampled trace's open span (``obs.trace.open_span``: the
+   router's ``search`` span under ``graph``) the loop adds its counters to
+   that span's attributes, summed over traversals: ``waves``, ``sync_ms``
+   (the time blocked in each wave's sync, each inside a
+   ``favor/graph/sync`` range under annotations), ``lanes_active`` /
+   ``lanes_launched`` (active lanes and stage width, summed over waves),
+   ``ids_launched`` (stage width x M0, the ids handed to ``score_block``)
+   and ``ids_useful`` (of those, the valid ids not yet visited: a device
+   scalar, read when the trace finishes).  Without one the loop tests a
+   local for None twice a wave and runs no other op.
 
 ``favor_graph_search`` (exclusion distances) and ``rsf_graph_search``
 (result-set-filtering baseline: D = 0, R admits TD only) are two thin entry
@@ -42,6 +52,7 @@ points over ONE traversal body.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,6 +61,7 @@ import torch
 from . import filters as F
 from .hnsw import HnswIndex
 from .scoring import scorer_for
+from ..obs.trace import open_span
 
 INF = float("inf")
 
@@ -233,6 +245,9 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
     # so a static index runs exactly the ops it ran before
     alive = g.get("alive")
 
+    traced = open_span()                             # (trace, span) or None
+    count = (None if traced is None else
+             dict(sync_ms=0.0, lanes_active=0, lanes_launched=0, ids_useful=0))
     sstate = scorer.prepare(g, queries, programs)
     ep = _descend(g, queries, scorer, sstate)        # (B,)
 
@@ -265,9 +280,16 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
     def stage_loop(s, D, sstate, limit: int):
         """One loop over the (possibly compacted) lane set; ``limit > 0``
         also stops it once the active population fits the next stage."""
-        lanes = torch.arange(s["active"].shape[0], device=dev)
+        width = s["active"].shape[0]
+        lanes = torch.arange(width, device=dev)
         while s["step"] < cfg.steps:
-            n_active = int(s["active"].sum())     # one host sync per wave
+            if count is None:
+                n_active = int(s["active"].sum())     # one host sync a wave
+            else:
+                t = time.perf_counter()
+                with traced[0].range("favor/graph/sync"):
+                    n_active = int(s["active"].sum())
+                count["sync_ms"] += (time.perf_counter() - t) * 1e3
             if n_active == 0 or (limit > 0 and n_active <= limit):
                 break
             cand_d, cand_i, cand_t = s["cand_d"], s["cand_i"], s["cand_t"]
@@ -307,6 +329,10 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
             new = ok & ~_seen_bits(s["visited"], lanes, safe)
             visited = _visit_bits(s["visited"], lanes, safe, new)
 
+            if count is not None:
+                count["lanes_active"] += n_active
+                count["lanes_launched"] += width
+                count["ids_useful"] = count["ids_useful"] + new.sum()
             key, td = scorer.score_block(g, sstate, safe, D)  # Eq. 2
             if alive is not None:
                 key, td = _gate_alive(key, td, alive[safe], D[:, None])
@@ -369,6 +395,12 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
             D_s = D_s[sel]
             sstate_s = _take_lanes(sstate_s, sel, scorer.shared_state)
     waves = state["step"]
+    if count is not None:
+        count.update(waves=waves, ids_launched=count["lanes_launched"]
+                     * g["neighbors0"].shape[1])
+        attrs = traced[1].attrs
+        for key, v in count.items():
+            attrs[key] = attrs.get(key, 0) + v
 
     # --- final S: k nearest TD in R (Algorithm 2 line 9) --------------------
     sd = torch.where(final["res_t"], final["res_d"], INF)  # TD: dbar == d

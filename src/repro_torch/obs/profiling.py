@@ -2,12 +2,14 @@
 
 ``annotate(name)`` returns a ``torch.profiler.record_function(name)``
 context while ``set_kernel_annotations(True)`` is in force, and a
-``nullcontext`` otherwise.  Wrapped around the router's estimate and route
-dispatches and the backend's scans and traversal, it brackets the host span
-that enqueues (and, for the graph route, waits on) the device work, so a
-``torch.profiler`` capture attributes kernel time to routes and bucket
-shapes.  The ``Obs`` facade flips the switch when
-``ObsSpec.kernel_annotations`` is set; off, the hook costs one global read.
+``nullcontext`` otherwise.  Wrapped around the backend's scans and
+traversal (``favor/local/*``, ``favor/sharded/*``), it brackets the host
+span that enqueues (and, for the graph route, waits on) the device work,
+so a ``torch.profiler`` capture attributes kernel time to routes.  The
+router's stages get their ranges from the trace's spans instead
+(``obs.trace``: ``favor/<span path>``).  The ``Obs`` facade flips the
+switch when ``ObsSpec.kernel_annotations`` is set; off, the hook costs one
+global read.
 
 The counterpart of the JAX package's ``jax.profiler.TraceAnnotation``
 scopes.  Its trace-time ``jax.named_scope`` metadata has no counterpart:

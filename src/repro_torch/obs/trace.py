@@ -16,14 +16,56 @@ deterministic 1-in-N on the batch counter, so two runs over the same
 workload trace the same batches.
 
 The port's copy of the JAX package's ``repro.obs.trace`` (pure Python);
-``tests/test_torch_obs.py`` holds the two to the same behaviour.
+``tests/test_torch_obs.py`` holds the two to the same behaviour.  The port
+adds:
+
+ * under ``ObsSpec.kernel_annotations`` each span is also a
+   ``torch.profiler.record_function`` range named ``favor/<span path>``
+   (``favor/graph/search``), opened and closed at the span's instants, so
+   a device trace puts every idle gap under the stage the host was in;
+ * ``host_wait`` / ``RequestTrace.wait`` time a host wait on the device
+   (a ``.cpu()`` read, an upload, a wave's sync) into a span or trace
+   attribute with ``time.perf_counter`` -- never the injected clock, so
+   fake-clock span trees keep their durations -- inside a range of its own;
+ * ``open_span()`` hands code below the router (the graph traversal) the
+   innermost open span of a sampled trace through a context variable, so
+   it can add its counters without a new parameter; a device scalar left
+   as an attribute is read to a number when the trace finishes, after the
+   batch's outputs were copied;
+ * ``finished`` keeps the process's last finished traces across tracers,
+   for a reader that outlives the engine that made them (a benchmark's
+   metric, a dump at exit).
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+from contextvars import ContextVar
 from dataclasses import dataclass, field
+
+#: The last traces any ``Tracer`` of the process finished, oldest first.
+finished: deque = deque(maxlen=4096)
+
+# (trace, span): the innermost span open in this context, of a sampled trace
+_OPEN: ContextVar = ContextVar("favor_open_span", default=None)
+
+
+def open_span():
+    """(RequestTrace, Span) of the innermost span open in this context, or
+    None when no sampled trace has one open."""
+    return _OPEN.get()
+
+
+def host_wait(key: str, name: str):
+    """Time a host wait on the device into the open span's ``key`` (ms,
+    summed over calls) inside range ``name``; a no-op without an open
+    span."""
+    cur = _OPEN.get()
+    if cur is None:
+        return nullcontext()
+    tr, sp = cur
+    return tr.wait(key, name, sp.attrs)
 
 
 def sample_period(fraction: float) -> int:
@@ -54,10 +96,12 @@ class Span:
 class RequestTrace:
     """Span tree for one engine batch through ``router.execute``."""
 
-    def __init__(self, trace_id: int, batch: int, time_fn):
+    def __init__(self, trace_id: int, batch: int, time_fn, *,
+                 annotate: bool = False):
         self.trace_id = trace_id
         self.batch = batch
         self._time = time_fn
+        self._annotate = annotate
         self.t0 = time_fn()
         self.t1: float | None = None
         self.spans: list[Span] = []
@@ -69,15 +113,41 @@ class RequestTrace:
         sp = Span(name, self._time(), attrs=attrs)
         (self._stack[-1].children if self._stack else self.spans).append(sp)
         self._stack.append(sp)
+        token = _OPEN.set((self, sp))
+        rng = (self.range("favor/" + "/".join(s.name for s in self._stack))
+               if self._annotate else nullcontext())
         try:
-            yield sp
+            with rng:
+                yield sp
         finally:
+            _OPEN.reset(token)
             sp.t1 = self._time()
             self._stack.pop()
+
+    def range(self, name: str):
+        """A ``torch.profiler.record_function`` range named ``name`` when
+        the trace annotates, else a ``nullcontext``."""
+        if not self._annotate:
+            return nullcontext()
+        from torch.profiler import record_function
+        return record_function(name)
+
+    @contextmanager
+    def wait(self, key: str, name: str, attrs: dict | None = None):
+        """Time a host wait on the device into ``attrs[key]`` (the trace's
+        own attributes by default; ms, summed) inside range ``name``."""
+        attrs = self.attrs if attrs is None else attrs
+        t = time.perf_counter()
+        try:
+            with self.range(name):
+                yield
+        finally:
+            attrs[key] = attrs.get(key, 0.0) + (time.perf_counter() - t) * 1e3
 
     def finish(self) -> None:
         if self.t1 is None:
             self.t1 = self._time()
+            _read_scalars(self.spans)
 
     @property
     def duration_s(self) -> float:
@@ -94,6 +164,16 @@ class RequestTrace:
         return {"trace_id": self.trace_id, "batch": self.batch,
                 "duration_ms": self.duration_s * 1e3, "attrs": dict(self.attrs),
                 "spans": [s.to_dict() for s in self.spans]}
+
+
+def _read_scalars(spans) -> None:
+    """Device scalars left as span attributes -> host numbers."""
+    from torch import Tensor
+    for sp in spans:
+        for k, v in sp.attrs.items():
+            if isinstance(v, Tensor):
+                sp.attrs[k] = v.item()
+        _read_scalars(sp.children)
 
 
 @dataclass
@@ -137,7 +217,8 @@ class Tracer:
         self._seq += 1
         if not self._period or (self._seq - 1) % self._period:
             return None
-        return RequestTrace(self._seq, batch, self._time)
+        return RequestTrace(self._seq, batch, self._time,
+                            annotate=self.spec.kernel_annotations)
 
     def finish(self, tr: RequestTrace, *, p_hat=None, routed_brute=None,
                signatures=None, ef: int = 0) -> None:
@@ -147,6 +228,7 @@ class Tracer:
         worth computing for slow batches)."""
         tr.finish()
         self.traces.append(tr)
+        finished.append(tr)
         self._m_traced.inc()
         for sp in tr.spans:
             self._m_stage.observe(sp.duration_s, stage=sp.name)
