@@ -10,8 +10,9 @@ fixed-width disjunctive normal form whose conjunctions are (per-int-column
 bitmask, per-float-column interval) tests.  Evaluation is branch-free tensor
 arithmetic, so it runs as torch ops on any device and inside the CUDA kernels
 (``repro_torch/csrc``), batched over queries, with the predicate as *data*
-rather than *code*.  The compiler, signatures and attribute table are numpy on
-the host; the three evaluators take torch tensors.
+rather than *code*.  The compiler (Python scalars, written into numpy arrays),
+signatures and attribute table run on the host; the three evaluators take
+torch tensors.
 
 Columns:
   * ``bool`` / ``int`` columns: small ordinal vocabulary (< 32); conjunction
@@ -29,7 +30,10 @@ from __future__ import annotations
 
 import hashlib
 import math
+import operator
+import struct
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Sequence
 
 import numpy as np
@@ -81,6 +85,28 @@ class Schema:
     @property
     def float_columns(self) -> tuple[ColumnSpec, ...]:
         return tuple(c for c in self.columns if c.kind == "float")
+
+    @cached_property
+    def _slots(self) -> dict[str, tuple[bool, int, int | None]]:
+        """column name -> (is an int column, index among its kind, vocab)"""
+        out = {c.name: (True, j, c.vocab) for j, c in enumerate(self.int_columns)}
+        out.update((c.name, (False, j, None))
+                   for j, c in enumerate(self.float_columns))
+        return out
+
+    @cached_property
+    def _full_conj(self) -> tuple:
+        """The always-true conjunction: every vocab bit, every interval
+        (-inf, +inf)."""
+        return (tuple((1 << c.vocab) - 1 for c in self.int_columns),
+                (-math.inf,) * len(self.float_columns),
+                (math.inf,) * len(self.float_columns))
+
+    def _slot(self, name: str) -> tuple[bool, int, int | None]:
+        try:
+            return self._slots[name]
+        except (KeyError, TypeError):
+            raise KeyError(name) from None
 
     def int_index(self, name: str) -> int:
         for i, c in enumerate(self.int_columns):
@@ -187,38 +213,57 @@ class Not(Filter):
 
 # ---------------------------------------------------------------------------
 # Conjunction representation used during compilation
+#
+# A conjunction is a tuple (imask, flo, fhi) of Python scalars: imask the
+# per-int-column allowed-value bitmasks (ints below 2**32), flo / fhi the
+# per-float-column interval bounds, floats that already hold float32 values
+# (every real bound is rounded once, at its leaf).  The arithmetic is
+# numpy's on uint32 / float32 arrays, element by element -- including which
+# operand np.maximum / np.minimum return on a tie (the second: -0.0 vs 0.0)
+# and that they carry a NaN -- so the stacked arrays hold numpy's bytes.
 # ---------------------------------------------------------------------------
-@dataclass
-class _Conj:
-    imask: np.ndarray  # (m_i,) uint32 allowed-value bitmasks
-    flo: np.ndarray  # (m_f,) float32
-    fhi: np.ndarray  # (m_f,) float32
-
-    def copy(self) -> "_Conj":
-        return _Conj(self.imask.copy(), self.flo.copy(), self.fhi.copy())
-
-    def feasible(self) -> bool:
-        return bool(np.all(self.imask != 0) and np.all(self.flo <= self.fhi))
+_F32 = struct.Struct("f")
 
 
-def _full_conj(schema: Schema) -> _Conj:
-    m_i = len(schema.int_columns)
-    m_f = len(schema.float_columns)
-    imask = np.zeros((m_i,), np.uint32)
-    for j, c in enumerate(schema.int_columns):
-        imask[j] = np.uint32((1 << c.vocab) - 1)
-    flo = np.full((m_f,), -np.inf, np.float32)
-    fhi = np.full((m_f,), np.inf, np.float32)
-    return _Conj(imask, flo, fhi)
+def _f32(x: float) -> float:
+    """``x`` rounded to float32 as numpy casts it: to nearest even, a finite
+    value beyond float32's range to +-inf, NaN kept."""
+    try:
+        return _F32.unpack(_F32.pack(x))[0]
+    except OverflowError:   # Pythons before 3.12 refuse to pack it
+        return math.copysign(math.inf, x)
 
 
-def _int_bits(values: Sequence[int], vocab: int, column: str) -> np.uint32:
-    mask = np.uint32(0)
+def _max(x: float, y: float) -> float:
+    return x if x > y or x != x else y      # np.maximum
+
+
+def _min(x: float, y: float) -> float:
+    return x if x < y or x != x else y      # np.minimum
+
+
+def _feasible(c: tuple) -> bool:
+    imask, flo, fhi = c
+    return 0 not in imask and all(map(operator.le, flo, fhi))
+
+
+def _set_int(c: tuple, j: int, bits: int) -> tuple:
+    imask = c[0]
+    return (imask[:j] + (bits,) + imask[j + 1:], c[1], c[2])
+
+
+def _set_float(c: tuple, j: int, lo: float, hi: float) -> tuple:
+    flo, fhi = c[1], c[2]
+    return (c[0], flo[:j] + (lo,) + flo[j + 1:], fhi[:j] + (hi,) + fhi[j + 1:])
+
+
+def _int_bits(values: Sequence[int], vocab: int, column: str) -> int:
+    mask = 0
     for v in values:
         v = int(v)
         if not (0 <= v < vocab):
             raise ValueError(f"value {v} out of vocab [0,{vocab}) for column {column!r}")
-        mask |= np.uint32(1) << np.uint32(v)
+        mask |= 1 << v
     return mask
 
 
@@ -230,86 +275,66 @@ def _strict_above(x: float) -> float:
     return float(np.nextafter(np.float32(x), np.float32(np.inf)))
 
 
-def _leaf_conjs(f: Filter, schema: Schema, negated: bool) -> list[_Conj]:
+def _leaf_conjs(f: Filter, schema: Schema, negated: bool) -> list[tuple]:
     """Compile a (possibly negated) leaf to a list of conjunctions (a DNF)."""
+    full = schema._full_conj
     if isinstance(f, TrueFilter):
-        return [] if negated else [_full_conj(schema)]
+        return [] if negated else [full]
     if isinstance(f, FalseFilter):
-        return [_full_conj(schema)] if negated else []
+        return [full] if negated else []
 
     if isinstance(f, Equality):
-        col = schema.column(f.column)
-        if col.kind in INT_KINDS:
-            j = schema.int_index(f.column)
-            bits = _int_bits([int(f.value)], col.vocab, f.column)
-            c = _full_conj(schema)
-            c.imask[j] = ~bits & c.imask[j] if negated else bits
-            return [c]
-        j = schema.float_index(f.column)
+        is_int, j, vocab = schema._slot(f.column)
+        if is_int:
+            bits = _int_bits([int(f.value)], vocab, f.column)
+            return [_set_int(full, j, ~bits & full[0][j] if negated else bits)]
         v = float(f.value)
         if not negated:
-            c = _full_conj(schema)
-            c.flo[j], c.fhi[j] = v, v
-            return [c]
-        lo_c, hi_c = _full_conj(schema), _full_conj(schema)
-        lo_c.fhi[j] = _strict_below(v)
-        hi_c.flo[j] = _strict_above(v)
-        return [lo_c, hi_c]
+            v = _f32(v)
+            return [_set_float(full, j, v, v)]
+        return [_set_float(full, j, -math.inf, _strict_below(v)),
+                _set_float(full, j, _strict_above(v), math.inf)]
 
     if isinstance(f, Inclusion):
-        col = schema.column(f.column)
-        if col.kind not in INT_KINDS:
+        is_int, j, vocab = schema._slot(f.column)
+        if not is_int:
             # float inclusion == OR of equalities
-            dnf: list[_Conj] = []
+            dnf: list[tuple] = []
             for v in f.values:
                 dnf.extend(_leaf_conjs(Equality(f.column, v), schema, False))
             if negated:
                 raise ValueError("NOT(Inclusion) on float columns is not supported; "
                                  "use Range complements")
             return dnf
-        j = schema.int_index(f.column)
-        bits = _int_bits(f.values, col.vocab, f.column)
-        c = _full_conj(schema)
-        full = c.imask[j]
-        c.imask[j] = (~bits & full) if negated else bits
-        return [c]
+        bits = _int_bits(f.values, vocab, f.column)
+        return [_set_int(full, j, (~bits & full[0][j]) if negated else bits)]
 
     if isinstance(f, Range):
-        col = schema.column(f.column)
+        is_int, j, vocab = schema._slot(f.column)
         lo = -math.inf if f.lo is None else float(f.lo)
         hi = math.inf if f.hi is None else float(f.hi)
-        if col.kind in INT_KINDS:
-            j = schema.int_index(f.column)
-            vals = [v for v in range(col.vocab) if lo <= v <= hi]
-            bits = _int_bits(vals, col.vocab, f.column)
-            c = _full_conj(schema)
-            full = c.imask[j]
-            c.imask[j] = (~bits & full) if negated else bits
-            return [c]
-        j = schema.float_index(f.column)
+        if is_int:
+            vals = [v for v in range(vocab) if lo <= v <= hi]
+            bits = _int_bits(vals, vocab, f.column)
+            return [_set_int(full, j, (~bits & full[0][j]) if negated else bits)]
         if not negated:
-            c = _full_conj(schema)
-            c.flo[j], c.fhi[j] = lo, hi
-            return [c]
+            return [_set_float(full, j, _f32(lo), _f32(hi))]
         out = []
         if lo > -math.inf:
-            c = _full_conj(schema)
-            c.fhi[j] = _strict_below(lo)
-            out.append(c)
+            out.append(_set_float(full, j, -math.inf, _strict_below(lo)))
         if hi < math.inf:
-            c = _full_conj(schema)
-            c.flo[j] = _strict_above(hi)
-            out.append(c)
+            out.append(_set_float(full, j, _strict_above(hi), math.inf))
         return out
 
     raise TypeError(f"not a leaf filter: {f!r}")
 
 
-def _conj_and(a: _Conj, b: _Conj) -> _Conj:
-    return _Conj(a.imask & b.imask, np.maximum(a.flo, b.flo), np.minimum(a.fhi, b.fhi))
+def _conj_and(a: tuple, b: tuple) -> tuple:
+    return (tuple(map(operator.and_, a[0], b[0])),
+            tuple(map(_max, a[1], b[1])), tuple(map(_min, a[2], b[2])))
 
 
-def _to_dnf(f: Filter, schema: Schema, negated: bool, max_width: int) -> list[_Conj]:
+def _to_dnf(f: Filter, schema: Schema, negated: bool, max_width: int) -> list[tuple]:
     if isinstance(f, Not):
         return _to_dnf(f.child, schema, not negated, max_width)
     if isinstance(f, And) or isinstance(f, Or):
@@ -318,18 +343,18 @@ def _to_dnf(f: Filter, schema: Schema, negated: bool, max_width: int) -> list[_C
         if not is_and:
             out = [c for d in child_dnfs for c in d]
         else:
-            out = [_full_conj(schema)]
+            out = [schema._full_conj]
             for d in child_dnfs:
                 out = [_conj_and(a, b) for a in out for b in d]
-                out = [c for c in out if c.feasible()]
+                out = [c for c in out if _feasible(c)]
                 if len(out) > 4 * max_width:
                     raise ValueError(
                         f"filter DNF exceeds width {max_width}; simplify the predicate")
-        out = [c for c in out if c.feasible()]
+        out = [c for c in out if _feasible(c)]
         if len(out) > 4 * max_width:
             raise ValueError(f"filter DNF exceeds width {max_width}")
         return out
-    return [c for c in _leaf_conjs(f, schema, negated) if c.feasible()]
+    return [c for c in _leaf_conjs(f, schema, negated) if _feasible(c)]
 
 
 # ---------------------------------------------------------------------------
@@ -355,22 +380,40 @@ class FilterProgram:
         return int(self.valid.shape[0])
 
 
-def compile_filter(f: Filter, schema: Schema, width: int = 8) -> FilterProgram:
-    conjs = _to_dnf(f, schema, False, max_width=width)
-    if len(conjs) > width:
-        raise ValueError(f"filter needs DNF width {len(conjs)} > {width}")
+def compile_stacked(filters: Sequence[Filter], schema: Schema,
+                    width: int = 8) -> dict[str, np.ndarray]:
+    """Compile one program per filter straight into stacked arrays (B, W, ...):
+    the bytes of ``stack_programs([compile_filter(f, schema, width) ...])``.
+    Dead rows are infeasible padding (valid 0, imask 0, flo +inf > fhi -inf)."""
     m_i = len(schema.int_columns)
     m_f = len(schema.float_columns)
-    valid = np.zeros((width,), np.float32)
-    imask = np.zeros((width, m_i), np.uint32)
-    flo = np.full((width, m_f), np.inf, np.float32)   # infeasible padding
-    fhi = np.full((width, m_f), -np.inf, np.float32)
-    for w, c in enumerate(conjs):
-        valid[w] = 1.0
-        imask[w] = c.imask
-        flo[w] = c.flo
-        fhi[w] = c.fhi
-    return FilterProgram(valid, imask, flo, fhi)
+    qs, ws, ims, los, his = [], [], [], [], []
+    for q, f in enumerate(filters):
+        conjs = _to_dnf(f, schema, False, max_width=width)
+        if len(conjs) > width:
+            raise ValueError(f"filter needs DNF width {len(conjs)} > {width}")
+        for w, (im, lo, hi) in enumerate(conjs):
+            qs.append(q)
+            ws.append(w)
+            ims.append(im)
+            los.append(lo)
+            his.append(hi)
+    b = len(filters)
+    valid = np.zeros((b, width), np.float32)
+    imask = np.zeros((b, width, m_i), np.uint32)
+    flo = np.full((b, width, m_f), np.inf, np.float32)
+    fhi = np.full((b, width, m_f), -np.inf, np.float32)
+    live = (np.asarray(qs, np.intp), np.asarray(ws, np.intp))
+    valid[live] = 1.0
+    imask[live] = np.asarray(ims, np.uint32).reshape(len(qs), m_i)
+    flo[live] = np.asarray(los, np.float32).reshape(len(qs), m_f)
+    fhi[live] = np.asarray(his, np.float32).reshape(len(qs), m_f)
+    return {"valid": valid, "imask": imask, "flo": flo, "fhi": fhi}
+
+
+def compile_filter(f: Filter, schema: Schema, width: int = 8) -> FilterProgram:
+    p = compile_stacked([f], schema, width)
+    return FilterProgram(p["valid"][0], p["imask"][0], p["flo"][0], p["fhi"][0])
 
 
 # ---------------------------------------------------------------------------

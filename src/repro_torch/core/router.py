@@ -188,9 +188,8 @@ def compile_programs(filters, schema: F.Schema, batch: int,
     """Compile + stack one DNF program per query into tensors on
     ``device``: valid/flo/fhi float32, imask int64 (uint32 bitmasks).
     Inside a traced ``compile`` span the upload is its ``upload_ms``."""
-    filters = broadcast_filters(filters, batch)
-    progs = [F.compile_filter(f, schema, width) for f in filters]
-    stacked = F.stack_programs(progs)
+    stacked = F.compile_stacked(broadcast_filters(filters, batch), schema,
+                                width)
     stacked["imask"] = stacked["imask"].astype(np.int64)
     with host_wait("upload_ms", "favor/compile/upload"):
         return {k: torch.as_tensor(v, device=device)

@@ -1,6 +1,9 @@
 """Port parity, host modules: the DNF compiler, the torch filter evaluators,
 the HNSW build, the exclusion distance and the selectivity estimate must be
 bit-identical to the JAX package on the same numpy inputs."""
+from dataclasses import dataclass, fields
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -72,6 +75,187 @@ def test_stack_programs_and_signatures_identical():
     for key in rs:
         np.testing.assert_array_equal(rs[key], ps[key])
     assert RF.batch_signatures(rs) == PF.batch_signatures(ps)
+
+
+# ---------------------------------------------------------------------------
+# compile_stacked / compile_programs: byte for byte the reference's
+# stack_programs([compile_filter(...)]), and the same errors
+# ---------------------------------------------------------------------------
+_COLS = (("b0", "bool", 2), ("i0", "int", 10), ("i1", "int", 32),
+         ("f0", "float", None), ("f1", "float", None))
+# real bounds: signed zeros, subnormals that round to 0 / the least
+# subnormal, float32's largest, beyond its range, infinities and NaN
+_REALS = (0.0, -0.0, 1.5, 42.0, 42.00000001, -7.25, 1e-46, -1e-46, 7e-46,
+          3.4028235e38, 1e39, -1e39, np.inf, -np.inf, np.nan)
+
+
+def _schema(F):
+    return F.Schema(tuple(F.ColumnSpec(*c) for c in _COLS))
+
+
+@dataclass(frozen=True)
+class _Opaque:
+    """Not a filter of either package: both compilers refuse it."""
+    name: str = "opaque"
+
+
+def _build(F, spec):
+    """A filter of package ``F`` from a nested tuple spec."""
+    if isinstance(spec, _Opaque):
+        return spec
+    op, *args = spec
+    if op in ("And", "Or"):
+        return getattr(F, op)(*(_build(F, a) for a in args))
+    if op == "Not":
+        return F.Not(_build(F, args[0]))
+    return getattr(F, op)(*args)
+
+
+def _leaf_spec(rng):
+    name, kind, vocab = _COLS[rng.integers(len(_COLS))]
+    reals = lambda: _REALS[rng.integers(len(_REALS))]  # noqa: E731
+    if kind == "float":
+        value = reals() if rng.random() < 0.5 else float(rng.uniform(-5, 105))
+    else:   # an int (or a bool, or a real that int() truncates) in vocab
+        value = (int(rng.integers(vocab)) if rng.random() < 0.8
+                 else [True, False, 2.9][rng.integers(3)])
+    bound = lambda: (None if rng.random() < 0.2 else  # noqa: E731
+                     reals() if rng.random() < 0.4 else
+                     float(rng.uniform(-5, 105 if kind == "float" else vocab)))
+    leaf = rng.integers(5)
+    if leaf == 0:
+        return ("Equality", name, value)
+    if leaf == 1:
+        n = int(rng.integers(1, 4))
+        vals = ([reals() for _ in range(n)] if kind == "float" else
+                sorted(rng.choice(vocab, size=min(n, vocab), replace=False).tolist()))
+        return ("Inclusion", name, vals)
+    if leaf == 2:
+        return ("Range", name, bound(), bound())
+    return (("TrueFilter",), ("FalseFilter",))[leaf - 3]
+
+
+def _tree_spec(rng, depth):
+    if depth == 0 or rng.random() < 0.3:
+        leaf = _leaf_spec(rng)
+        return ("Not", leaf) if rng.random() < 0.4 else leaf
+    op = ("And", "Or", "Not")[rng.integers(3)]
+    if op == "Not":
+        return ("Not", _tree_spec(rng, depth - 1))
+    return (op,) + tuple(_tree_spec(rng, depth - 1)
+                         for _ in range(int(rng.integers(1, 4))))
+
+
+def _corpus():
+    """Every leaf kind on every column kind, plain and negated, then
+    seeded And / Or / Not trees over them."""
+    rng = np.random.default_rng(30)
+    specs = []
+    for name, kind, vocab in _COLS:
+        vals = list(_REALS) if kind == "float" else [0, vocab - 1, True]
+        for v in vals:
+            specs.append(("Equality", name, v))
+        specs.append(("Inclusion", name, vals[:3]))
+        for lo in (None,) + _REALS:
+            for hi in (None, 5.0, np.inf, 1e39, np.nan, -0.0):
+                specs.append(("Range", name, lo, hi))
+    specs += [("Not", s) for s in specs]
+    # an AND's bounds meeting at -0.0 and 0.0, in both orders
+    for z1, z2 in ((-0.0, 0.0), (0.0, -0.0)):
+        specs += [("And", ("Range", "f0", z1, 5.0), ("Range", "f0", z2, 5.0)),
+                  ("And", ("Range", "f1", -5.0, z1), ("Range", "f1", -5.0, z2)),
+                  ("And", ("Equality", "f0", z1), ("Range", "f0", z2, z2))]
+    specs += [_tree_spec(rng, 3) for _ in range(400)]
+    return specs
+
+
+_WIDE = ("Or",) + tuple(("Equality", "f0", float(v)) for v in range(9))
+_ERRORS = {
+    "out_of_vocab": [("Equality", "i0", 10), ("Equality", "i0", -1),
+                     ("Inclusion", "i0", [3, 12]), ("Equality", "b0", 2),
+                     ("Equality", "i0", np.nan), ("Equality", "zz", 1)],
+    "dnf_wider_than_width": [_WIDE,
+                             ("Or",) + (_WIDE,) * 4,  # 36 > 4 * 8
+                             ("Not", ("And",) + tuple(
+                                 ("Not", s) for s in _WIDE[1:]))],
+    "and_step_above_4w": [("And", _WIDE[:6], ("Or",) + tuple(
+        ("Equality", "f1", float(v)) for v in range(7)))],   # 35 > 32
+    "not_float_inclusion": [("Not", ("Inclusion", "f0", [1.0, 2.0])),
+                            ("Not", ("Inclusion", "f1", [np.nan]))],
+    "unknown_leaf": [_Opaque(), ("And", ("Equality", "i0", 1), _Opaque())],
+}
+
+
+def _mix_specs(mix):
+    from portbench import traffic
+    from portbench.program import to_filter
+    tr = traffic.load(Path(__file__).parents[1] / "portbench" / "traffic"
+                      / f"{mix}.json")
+    specs, _ = traffic.draw_batch(tr, 1000, np.random.default_rng(2**31 + 30))
+    # the program's own filters, rebuilt as nested tuple specs
+    def spec(f):
+        name = type(f).__name__
+        if name in ("And", "Or"):
+            return (name,) + tuple(spec(c) for c in f.children)
+        if name == "Not":
+            return (name, spec(f.child))
+        return (name,) + tuple(getattr(f, k.name) for k in fields(f))
+    return [spec(to_filter(s)) for s in specs]
+
+
+def _outcome(fn):
+    try:
+        with np.errstate(over="ignore", invalid="ignore"):
+            return fn()
+    except Exception as e:  # noqa: BLE001 -- the outcome under test
+        return (type(e), str(e))
+
+
+def _same_bytes(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        assert got[k].view(np.uint8).tobytes() == want[k].view(np.uint8).tobytes(), k
+
+
+CASES = ([f"corpus.w{w}" for w in (1, 4, 8)]
+         + ["lowsel.b1000", "paper-graph.b10000"] + sorted(_ERRORS))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_compile_stacked_identical(case):
+    """The port's compile_stacked and router.compile_programs give the
+    reference's stacked programs byte for byte, and each filter the
+    reference refuses raises the same exception and message."""
+    rs, ps = _schema(RF), _schema(PF)
+    width = int(case[-1]) if case.startswith("corpus") else 8
+    specs = (_corpus() if case.startswith("corpus") else _ERRORS.get(case)
+             or _mix_specs(case))
+    ok_r, ok_p, n_err = [], [], 0
+    for s in specs:
+        rf, pf = _build(RF, s), _build(PF, s)
+        want = _outcome(lambda: RF.compile_filter(rf, rs, width))
+        if isinstance(want, tuple):
+            n_err += 1
+            assert _outcome(lambda: PF.compile_stacked([pf], ps, width)) == want
+            assert _outcome(lambda: PF.compile_filter(pf, ps, width)) == want
+            assert _outcome(lambda: compile_programs(
+                [PF.TrueFilter(), pf], ps, 2, width, device="cpu")) == want
+        else:
+            ok_r.append(rf)
+            ok_p.append(pf)
+    if case in _ERRORS:
+        assert n_err == len(specs)
+        return
+    assert len(ok_p) > len(specs) // 2
+    want = _outcome(lambda: RF.stack_programs(
+        [RF.compile_filter(f, rs, width) for f in ok_r]))
+    _same_bytes(_outcome(lambda: PF.compile_stacked(ok_p, ps, width)), want)
+    got = _outcome(lambda: compile_programs(ok_p, ps, len(ok_p), width,
+                                            device="cpu"))
+    assert got["imask"].dtype == torch.int64
+    _same_bytes({k: v.numpy() for k, v in got.items()},
+                dict(want, imask=want["imask"].astype(np.int64)))
 
 
 def _attrs(schema_r, schema_p, n, seed):

@@ -240,6 +240,9 @@ RENAMED = {
     "core/distributed.py:device_put_sharded_db":
         "core/distributed.py place_sharded_db: each mesh cell's slice on "
         "the cell's torch device",
+    "core/filters.py:_Conj.copy":
+        "none: the port's conjunctions are tuples, never changed in place",
+    "core/filters.py:_Conj.feasible": "core/filters.py _feasible",
     "core/prefbf.py:INF": "core/search.py INF, the port's one +inf",
     "core/scoring.py:GRAPH_QUANT_KINDS": "core/options.py GRAPH_QUANT",
     "core/scoring.py:pairwise_dist":
