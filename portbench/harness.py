@@ -58,9 +58,42 @@ def find_cell(bench: dict, workload: str, root: Path):
     cell = cells[workload]
     conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     cfg = load_json(root / conf["file"])
+    check_config(cfg)
     trf = traffic_mod.load(Path(root) / BENCH_DIR.name / "traffic"
                            / f"{cell['traffic']}.json")
     return cell, cfg, trf
+
+
+LIMIT_KEYS = ("bad_ids", "short", "dist_gap", "exact_gap", "recall_gap",
+              "brute_recall_gap")
+
+
+def check_config(cfg: dict) -> None:
+    """Refuse, before any set-up, a configuration whose ``search``,
+    ``quant`` or ``limits`` object has a key the harness does not know (a
+    typo would silently run, or check, something else), whose compressed
+    options name no ``quant`` format, or whose brute route is compressed
+    (``use_pq``) with no ``brute_recall_gap`` limit to hold it."""
+    from . import program
+    known = {"search": program.SEARCH_KEYS + program.SEARCH_OPTION_KEYS,
+             "quant": program.QUANT_KEYS, "limits": LIMIT_KEYS}
+    for group, keys in known.items():
+        unknown = sorted(set(cfg.get(group) or {}) - set(keys))
+        if unknown:
+            raise ValueError(f"configuration {cfg.get('name')!r}: unknown "
+                             f"{group} keys {unknown}; known: {list(keys)}")
+    s, q = cfg["search"], cfg.get("quant")
+    if s.get("use_pq") and q is None:
+        raise ValueError("search.use_pq needs a quant object")
+    if s.get("graph_quant") is not None and (q is None or s["graph_quant"]
+                                             != q.get("kind", "pq")):
+        raise ValueError(f"search.graph_quant {s['graph_quant']!r} needs a "
+                         "quant object of that kind")
+    if s.get("use_pq") and "brute_recall_gap" not in cfg["limits"]:
+        raise ValueError("search.use_pq needs limits.brute_recall_gap: the "
+                         "compressed brute route is held to its recall")
+    program.build_spec(cfg)
+    program.search_options(cfg)
 
 
 def metric_entries(bench: dict, workload: str, trace: bool) -> list:
@@ -133,6 +166,7 @@ def run_cell(cfg: dict, trf: dict, *, seed: int, seconds: float, trace: bool,
     > 0 runs the control instead of the program; ``cut_waves`` > 0 plants
     a fault in the program: every traversal cut to that many waves."""
     from . import program
+    check_config(cfg)
     t0 = time.perf_counter() if t_start is None else t_start
     dev = torch.device(device)
     parts = {}
@@ -258,6 +292,11 @@ def run_cell(cfg: dict, trf: dict, *, seed: int, seconds: float, trace: bool,
         cfg, base, cols, pool_q, pool_specs, answers, k,
         names=pool_names, log=log)
     if trace and tr:
+        # each route's calls under the key of the kernel that serves it:
+        # the f32 readers find nothing on a compressed route
+        s = cfg["search"]
+        ft_key = "pq_calls" if s.get("use_pq") else "ft_calls"
+        gd_key = "pq_gd_calls" if s.get("graph_quant") else "gd_calls"
         ft_calls, gd_calls = [], []
         for j in traced_calls:
             rec = batches[j]
@@ -269,8 +308,8 @@ def run_cell(cfg: dict, trf: dict, *, seed: int, seconds: float, trace: bool,
                 ft_calls.append((len(br), passing))
             if len(br) < rec["queries"]:
                 gd_calls.append((rec["queries"] - len(br), rec["hops"]))
-        tr["ft_calls"] = ft_calls
-        tr["gd_calls"] = gd_calls
+        tr[ft_key] = ft_calls
+        tr[gd_key] = gd_calls
         ctx["trace"] = tr
     ctx.update(setup_s=setup_s, setup=parts, batches=batches,
                window_s=window_s, queries=sum(r["queries"] for r in batches),
@@ -320,8 +359,12 @@ def check(cfg, base, cols, pool_q, pool_specs, answers, k, *,
         route = torch.cat(route)
     sel = torch.as_tensor(rows, device=qs.device)
     r_sub = tuple(t[sel] for t in ref)
+    # the brute route is exact only on the f32 scan; under ``use_pq`` it
+    # is the ADC scan and an exact re-rank of its candidates, held to its
+    # recall (``brute_recall_gap``) and, by ``dist_gap``, to exact distances
+    exact = route & (not cfg["search"].get("use_pq", False))
     res = reference.compare(base["vectors"], qs[sel], [specs[j] for j in rows],
-                            cols, got_i, got_d, route, k, ref=r_sub)
+                            cols, got_i, got_d, exact, k, ref=r_sub)
     limits = cfg["limits"]
     per = {"bad_ids": res["bad_ids"] > limits["bad_ids"],
            "short": res["short"] & (res["short"].sum() > limits["short"]),
@@ -334,6 +377,10 @@ def check(cfg, base, cols, pool_q, pool_specs, answers, k, *,
                ("dist_gap", float(res["dist_gap"].max()), limits["dist_gap"]),
                ("exact_gap", float(res["exact_gap"].max()),
                 limits["exact_gap"])]
+    if "brute_recall_gap" in limits:
+        brute = res["recall"][route.to(res["recall"].device)]
+        gap = 1.0 - float(brute.double().mean()) if len(brute) else 0.0
+        numbers.append(("brute_recall_gap", gap, limits["brute_recall_gap"]))
     if "recall_gap" in limits:
         # the share of the true top-k that the sampled answers miss: where
         # the graph route answers, a traversal that stops early or wanders

@@ -15,12 +15,41 @@ import torch
 from repro_torch.convert import from_reference_arrays
 from repro_torch.core import filters as F
 from repro_torch.core.hnsw import HnswParams
-from repro_torch.core.options import BuildSpec, ObsSpec, SearchOptions
+from repro_torch.core.options import (BuildSpec, ObsSpec, QuantSpec,
+                                     SearchOptions)
 from repro_torch.core.router import execute
 from repro_torch.core.selector import SelectorConfig
 from repro_torch.obs import Obs
 
 from . import data
+
+# The keys a configuration may carry: ``search`` (read by the harness and
+# the index, then the optional ``SearchOptions`` fields) and the optional
+# ``quant`` object (``QuantSpec``'s fields: the compressed format the
+# loader trains and encodes at set-up).  Only the fields a deployment
+# states; the rest keep the port's defaults, and the re-rank depth has one
+# source, ``quant.rerank``.
+SEARCH_KEYS = ("k", "ef", "width", "lam")
+SEARCH_OPTION_KEYS = ("use_pq", "graph_quant")
+QUANT_KEYS = ("kind", "m", "nbits", "rerank")
+
+
+def build_spec(cfg: dict) -> BuildSpec:
+    """The index's ``BuildSpec``: the selector's lambda and, where the
+    configuration has a ``quant`` object, its ``QuantSpec`` (the codebook is
+    trained from ``HnswParams.seed``, so every run serves the same codes)."""
+    q = cfg.get("quant")
+    return BuildSpec(selector=SelectorConfig(lam=cfg["search"]["lam"]),
+                     quant=None if q is None else QuantSpec(**q))
+
+
+def search_options(cfg: dict, max_steps: int = 0) -> SearchOptions:
+    """The window's ``SearchOptions``: k, ef, and the optional fields the
+    configuration's ``search`` object names."""
+    s = cfg["search"]
+    return SearchOptions(k=s["k"], ef=s["ef"], max_steps=max_steps,
+                         **{key: s[key] for key in SEARCH_OPTION_KEYS
+                            if key in s})
 
 
 def to_filter(spec) -> F.Filter:
@@ -44,19 +73,19 @@ def to_filter(spec) -> F.Filter:
 def make_index(cfg: dict, base: dict, graph: dict, seed: int, device):
     """The port's FavorIndex over the benchmark's rows and graph, through
     the loader ``FavorIndex.load`` uses (host arrays in, the port's own
-    padding, upload and selectivity sample)."""
+    padding, upload and selectivity sample, and under ``quant`` the
+    codebook's training and the rows' encoding on ``device``)."""
     h = cfg["hnsw"]
     icols, fcols = data.schema_columns(cfg)
     schema = [(n, k, v or 0) for n, k, v in icols + fcols]
     params = HnswParams(M=h["M"], M0=h["M0"], efc=h["efc"], alpha=h["alpha"],
                         seed=int(seed) % (1 << 31))
-    spec = BuildSpec(selector=SelectorConfig(lam=cfg["search"]["lam"]))
     return from_reference_arrays(
         vectors=base["vectors"].cpu().numpy(), levels=graph["levels"],
         node_level=graph["node_level"], entry_point=graph["entry_point"],
         max_level=graph["max_level"], delta_d=graph["delta_d"], params=params,
         ints=base["ints"].cpu().numpy(), floats=base["floats"].cpu().numpy(),
-        schema=schema, spec=spec, device=device)
+        schema=schema, spec=build_spec(cfg), device=device)
 
 
 class Runner:
@@ -68,10 +97,9 @@ class Runner:
 
     def __init__(self, fi, cfg: dict, *, traced: bool = False,
                  max_steps: int = 0):
-        s = cfg["search"]
         self.fi = fi
         self.n = fi.index.n
-        self.opts = SearchOptions(k=s["k"], ef=s["ef"], max_steps=max_steps)
+        self.opts = search_options(cfg, max_steps)
         self.obs = (Obs(ObsSpec(trace_cap=1, slow_ms=None,
                                 kernel_annotations=True))
                     if traced else None)

@@ -4,7 +4,8 @@ each output byte written once, and the operations these inputs need,
 whatever kernel computes them.
 
 The gather count is ``chip_smoke.py``'s ``gd_bounds`` (its data-sheet
-bound) and the scan's bytes ``chip_smoke.py``'s ``ft_bytes``, copied here
+bound) and the scan's bytes ``chip_smoke.py``'s ``ft_bytes``; the two PQ
+kernels' bytes are its ``topr_bytes`` and ``pq_gather_bounds``, copied here
 so that the yardstick stays with the benchmark.
 """
 from __future__ import annotations
@@ -59,6 +60,36 @@ def filtered_topk_work(b: int, n: int, d: int, mi: int, mf: int, k: int,
     nbytes = (n * 4 * (d + 1 + mi + mf) + b * d * 4
               + program_bytes(b, w, mi, mf) + b * k * 8)
     return 2 * d * passing, nbytes
+
+
+def pq_adc_topr_work(b: int, n: int, m: int, ksub: int, mi: int, mf: int,
+                     r: int, passing: int,
+                     w: int = PROGRAM_WIDTH) -> tuple[int, int]:
+    """(operations, bytes) of one ``pq_adc_topr`` call (the compressed brute
+    route's scan): B queries over N rows of ``m`` one-byte codes, ``passing``
+    the rows passing the queries' filters, summed over the queries.  Every
+    code row, norm and attribute, the (B, m, ksub) f32 tables and the
+    programs read once, r candidates a query (id and distance) written
+    once; one m-long lookup-add for each passing pair only."""
+    nbytes = (n * (m + 4 * (1 + mi + mf)) + b * m * ksub * 4
+              + program_bytes(b, w, mi, mf) + b * r * 8)
+    return m * passing, nbytes
+
+
+def traversal_pq_gather_work(b: int, rows: int, m: int, ksub: int, mi: int,
+                             mf: int, lut_bytes: int, w: int = PROGRAM_WIDTH,
+                             id_bytes: int = 8) -> tuple[int, int]:
+    """(operations, bytes) of the ``pq_adc_gather`` work a graph traversal
+    of ``b`` queries needs under ``graph_quant="pq"``, whatever blocks it is
+    cut into: ``rows`` the neighbour rows it scores, each row's code row,
+    attributes and id read once, its m table entries (``lut_bytes`` each)
+    read, and its key and TD byte written once; the queries' D and programs
+    read once; m adds a row.  The (B, m, ksub) tables are read at most
+    whole: a query's lookups past its m x ksub entries repeat some."""
+    dense = b * 4 + program_bytes(b, w, mi, mf)
+    tables = lut_bytes * min(rows * m, b * m * ksub)
+    scattered = rows * (m + 4 * (mi + mf) + id_bytes + 5)
+    return rows * m, dense + tables + scattered
 
 
 def bound_s(flops: float, nbytes: float, peaks: dict = PEAKS) -> float:

@@ -39,14 +39,24 @@ def test_tiny_cell_end_to_end():
     json.dumps(line)
 
 
-@pytest.mark.parametrize("traffic", ["paper-graph.b10000", "lowsel.b1000"])
-def test_control_is_not_correct(traffic):
-    """The reference on TF32 in the program's place fails the check."""
+@pytest.mark.parametrize("traffic,pq", [
+    pytest.param("paper-graph.b10000", False, id="paper-graph.b10000"),
+    pytest.param("lowsel.b1000", False, id="lowsel.b1000"),
+    pytest.param("lowsel.b1000", True, id="lowsel.b1000-pq")])
+def test_control_is_not_correct(traffic, pq):
+    """The reference on TF32 in the program's place fails the check; on a
+    configuration whose brute route is compressed (no exact route to hold
+    to ``exact_gap``), by ``dist_gap`` all the same."""
     cfg, trf = tiny(traffic=traffic, n=20000, dim=128)
+    if pq:
+        cfg["quant"] = {"kind": "pq", "m": 32, "nbits": 8, "rerank": 8}
+        cfg["search"].update(use_pq=True, graph_quant="pq")
+        cfg["limits"]["brute_recall_gap"] = 0.1
     fields, _, numbers = run(cfg, trf, control=4)
     got = dict((n, v) for n, v, _ in numbers)
     assert not fields["correct"]
     assert got["dist_gap"] > cfg["limits"]["dist_gap"]
+    assert ("brute_recall_gap" in got) == pq
 
 
 def _stale(orig):
