@@ -32,6 +32,9 @@ adds:
    it can add its counters without a new parameter; a device scalar left
    as an attribute is read to a number when the trace finishes, after the
    batch's outputs were copied;
+ * ``stage_span()`` opens a child of that span for a stage below the
+   router (the compressed scan's), timed with ``time.perf_counter`` like
+   ``host_wait``, so fake-clock traces keep their readings;
  * ``finished`` keeps the process's last finished traces across tracers,
    for a reader that outlives the engine that made them (a benchmark's
    metric, a dump at exit).
@@ -66,6 +69,17 @@ def host_wait(key: str, name: str):
         return nullcontext()
     tr, sp = cur
     return tr.wait(key, name, sp.attrs)
+
+
+def stage_span(name: str):
+    """A span ``name`` under the innermost open span of a sampled trace,
+    timed with ``time.perf_counter`` (never the injected clock, as
+    ``host_wait``), yielding the ``Span``; a ``nullcontext`` yielding None
+    without an open span."""
+    cur = _OPEN.get()
+    if cur is None:
+        return nullcontext()
+    return cur[0].span(name, clock=time.perf_counter)
 
 
 def sample_period(fraction: float) -> int:
@@ -109,8 +123,11 @@ class RequestTrace:
         self._stack: list[Span] = []
 
     @contextmanager
-    def span(self, name: str, **attrs):
-        sp = Span(name, self._time(), attrs=attrs)
+    def span(self, name: str, *, clock=None, **attrs):
+        """A span under the innermost open one, timed by ``clock`` (the
+        trace's own by default)."""
+        now = self._time if clock is None else clock
+        sp = Span(name, now(), attrs=attrs)
         (self._stack[-1].children if self._stack else self.spans).append(sp)
         self._stack.append(sp)
         token = _OPEN.set((self, sp))
@@ -121,7 +138,7 @@ class RequestTrace:
                 yield sp
         finally:
             _OPEN.reset(token)
-            sp.t1 = self._time()
+            sp.t1 = now()
             self._stack.pop()
 
     def range(self, name: str):

@@ -10,8 +10,17 @@ and the answer is an exact float32 re-rank of those R rows.
 
 ``pq_prefbf_topk`` is one call to the ``pq_adc_topr`` wrapper on every
 device: the hand-written kernel on CUDA tensors, its plain chunked scan on
-CPU tensors.  ``sq_prefbf_topk`` has no kernel in the JAX package either and
-stays plain torch.
+CPU tensors.  Inside a sampled trace's open span (``obs.trace.open_span``:
+the router's ``search`` span under ``brute``) its three stages are spans
+``luts``, ``screen`` and ``rerank`` (``obs.trace.stage_span``: on the
+host's clock; profiler ranges ``favor/brute/search/<stage>`` under kernel
+annotations), and on the card the ``screen`` span gets the kernel's
+counters summed over the batch: ``screen_pairs`` (pairs through the 8-bit
+screen) and ``rescored_pairs`` (passing pairs whose exact key it
+computed), device scalars read when the trace finishes.  Untraced, it
+runs the ops it ran before it had spans.
+``sq_prefbf_topk`` has no kernel in the JAX package either and stays plain
+torch.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch
 from ..core import filters as F
 from ..kernels._common import no_tf32, rows_mm
 from ..kernels.pq_adc import ops as pq_ops
+from ..obs.trace import open_span, stage_span
 
 INF = float("inf")
 
@@ -87,10 +97,26 @@ def pq_prefbf_topk(codes, norms, ints, floats, queries, programs, centroids,
     float32 dists (B, k) (+inf missing).
     """
     r = max(k, rerank * k)
-    luts = build_luts(centroids, queries)
-    cand_i, _ = pq_ops.pq_adc_topr(codes, norms, ints, floats, luts, programs,
-                                   r=r, valid=valid, chunk=chunk)
-    return _exact_rerank(vectors, norms, queries, cand_i, k=k, valid=valid)
+    traced = open_span()                             # (trace, span) or None
+    with stage_span("luts"):
+        luts = build_luts(centroids, queries)
+    # the kernel's counters, on the card inside a trace (the plain scan
+    # has no screen to count)
+    screened = rescored = None
+    if traced is not None and luts.is_cuda:
+        screened, rescored = torch.zeros((2, luts.shape[0]),
+                                         dtype=torch.int32, device=luts.device)
+    with stage_span("screen") as sp:
+        cand_i, _ = pq_ops.pq_adc_topr(codes, norms, ints, floats, luts,
+                                       programs, r=r, valid=valid,
+                                       chunk=chunk, screen_counts=screened,
+                                       rescore_counts=rescored)
+        if screened is not None:
+            sp.attrs["screen_pairs"] = screened.sum()
+            sp.attrs["rescored_pairs"] = rescored.sum()
+    with stage_span("rerank"):
+        return _exact_rerank(vectors, norms, queries, cand_i, k=k,
+                             valid=valid)
 
 
 def _merge_topr(best_d, best_i, tile_d, tile_i, r: int):

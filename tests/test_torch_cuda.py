@@ -1035,6 +1035,35 @@ def test_caching_backend_on_card(dev, use_pq):
 
 
 @pytest.mark.cuda
+def test_pq_brute_trace_counts_on_card(dev):
+    """A traced ``use_pq`` brute batch on the card: the ``screen`` span
+    under ``brute``/``search`` carries the kernel's counters summed over the
+    batch, filled (``screen_pairs`` > 0, as many ``rescored_pairs`` as the
+    answers need at least), ``rescored_pairs`` <= ``screen_pairs`` and <=
+    the filter-passing pairs; the answers are the untraced batch's bits."""
+    from repro_torch.core import ObsSpec, SearchOptions
+    from repro_torch.obs import Obs
+    fi, attrs, qs, flts = _card_index(seed=31, quant=True)
+    opts = SearchOptions(k=10, use_pq=True, force="brute")
+    plain = fi.query(qs, flts, opts)
+    obs = Obs(ObsSpec(slow_ms=None))
+    traced = fi.query(qs, flts, opts, obs=obs)
+    assert _same_bits(traced.ids, traced.dists, plain.ids, plain.dists)
+    (brute,) = [s for s in obs.tracer.traces[-1].spans if s.name == "brute"]
+    (search,) = [c for c in brute.children if c.name == "search"]
+    assert [c.name for c in search.children] == ["luts", "screen", "rerank"]
+    attrs_ = search.children[1].attrs
+    screened, rescored = attrs_["screen_pairs"], attrs_["rescored_pairs"]
+    assert isinstance(screened, int) and isinstance(rescored, int)
+    progs = fi.compile_filters(flts)
+    passing = int(PF.eval_program_batched(
+        progs, torch.as_tensor(attrs.ints, device=dev),
+        torch.as_tensor(attrs.floats, device=dev)).sum())
+    answered = int((plain.ids >= 0).sum())
+    assert 0 < answered <= rescored <= min(screened, passing)
+
+
+@pytest.mark.cuda
 def test_scope_sidecar_on_card(dev):
     """The router's ``"scope"`` sidecar lies on the card: the cache reads
     it to the host, strips it before the kernels, and keys the scoped

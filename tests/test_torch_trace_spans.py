@@ -13,13 +13,14 @@ torch = pytest.importorskip("torch")
 
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
-from repro_torch.core import (BatchSpec, FavorIndex, HnswParams,  # noqa: E402
-                              ObsSpec, SearchOptions, exclusion, router,
-                              search)
+from repro_torch.core import (BatchSpec, BuildSpec, FavorIndex,  # noqa: E402
+                              HnswParams, ObsSpec, QuantSpec, SearchOptions,
+                              exclusion, router, search)
 from repro_torch.core import filters as F  # noqa: E402
 from repro_torch.core.search import SearchConfig  # noqa: E402
 from repro_torch.obs import Obs, profiling  # noqa: E402
 from repro_torch.obs import trace as T  # noqa: E402
+from repro_torch.quant import adc  # noqa: E402
 
 N, DIM, B = 600, 16, 12
 WAVE_KEYS = ("waves", "sync_ms", "lanes_active", "lanes_launched",
@@ -261,3 +262,84 @@ def test_spans_are_profiler_ranges(setup, tmp_path):
     waves = next(c for s in tr.spans if s.name == "graph"
                  for c in s.children if c.name == "search").attrs["waves"]
     assert len(by_name["favor/graph/sync"]) >= waves
+
+
+# -- the compressed brute route's stages ---------------------------------------
+PQ_STAGES = ("luts", "screen", "rerank")
+
+
+@pytest.fixture(scope="module")
+def pq_setup(setup):
+    """``setup``'s rows, attributes, queries and filters under a PQ index
+    (M 4 x 4 bits, re-rank 4)."""
+    fi, q, flts = setup
+    attrs = F.random_attributes(F.paper_schema(), N, seed=9)
+    pq = FavorIndex.build(fi.index.vectors, attrs,
+                          HnswParams(M=6, efc=32, seed=3),
+                          BuildSpec(quant=QuantSpec(kind="pq", m=4, nbits=4,
+                                                    rerank=4)),
+                          device="cpu")
+    return pq, q, flts
+
+
+def _pq_query(pq_setup, obs=None):
+    pq, q, flts = pq_setup
+    return pq.query(q, flts, SearchOptions(k=5, use_pq=True, force="brute"),
+                    obs=obs)
+
+
+def test_pq_brute_stages_are_spans(pq_setup, tmp_path):
+    """Under a sampled trace the compressed scan's three stages are spans
+    under ``brute``/``search`` and, under kernel annotations, profiler
+    ranges of the same path; on the CPU (the plain scan, no screen) they
+    carry no counters."""
+    obs = Obs(ObsSpec(slow_ms=None, kernel_annotations=True))
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            _pq_query(pq_setup, obs)
+    finally:
+        profiling.set_kernel_annotations(False)
+    (brute,) = [s for s in obs.tracer.traces[-1].spans if s.name == "brute"]
+    (search_sp,) = [c for c in brute.children if c.name == "search"]
+    assert tuple(c.name for c in search_sp.children) == PQ_STAGES
+    for c in search_sp.children:
+        assert c.duration_s > 0 and not c.attrs
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    names = {e["name"] for e in _ranges(tmp_path / "trace.json")}
+    assert {f"favor/brute/search/{s}" for s in PQ_STAGES} <= names
+
+
+def test_pq_traced_and_untraced_answers_are_bit_identical(pq_setup):
+    """Tracing the compressed scan changes no answer bit and, on the CPU,
+    adds no torch op to it; its stages never read a trace's injected
+    clock (a fake clock reads ``search`` as one tick, as the JAX package,
+    which has no such stages, does)."""
+    plain = _pq_query(pq_setup)
+    clock = FakeClock()
+    obs = Obs(ObsSpec(slow_ms=None), time_fn=clock)
+    traced = _pq_query(pq_setup, obs)
+    (brute,) = [s for s in obs.tracer.traces[-1].spans if s.name == "brute"]
+    (search_sp,) = [c for c in brute.children if c.name == "search"]
+    assert search_sp.duration_s == pytest.approx(clock.tick)
+    assert [c.name for c in search_sp.children] == list(PQ_STAGES)
+    np.testing.assert_array_equal(traced.ids, plain.ids)
+    assert np.array_equal(traced.dists.view(np.uint32),
+                          plain.dists.view(np.uint32))
+    assert plain.routed_brute.all()
+    pq, q, flts = pq_setup
+    progs = pq.compile_filters(flts)
+    pv, pn, pi, pf = pq._pf
+    args = (pq._codes, pn, pi, pf, q, progs, pq._cb_dev[0], pv)
+    counts = []
+    for traced_run in (False, True):
+        tr = T.RequestTrace(1, B, time.perf_counter)
+        with _Count() as c:
+            if traced_run:
+                with tr.span("search"):
+                    out = adc.pq_prefbf_topk(*args, k=5, rerank=4)
+            else:
+                out = adc.pq_prefbf_topk(*args, k=5, rerank=4)
+        counts.append((c.n, out))
+    assert counts[0][0] == counts[1][0]
+    assert torch.equal(counts[0][1][0], counts[1][1][0])
