@@ -1,18 +1,23 @@
 """Pre-filtering brute-force search (paper Sections 3.2.1 and 4.1).
 
-On CPU the paper gathers the predicate-passing rows and scans them.  On the
-device the scan visits *all* rows of the DB and masks the predicate failures
-to +inf -- the arithmetic (and the results) are identical to pre-filtering,
-with the filter evaluated as the compiled DNF program.  This is the fused
-distance + mask + top-k scan of kernels/filtered_topk: the hand-written
-kernel on CUDA tensors, its plain chunked scan (the counterpart of the JAX
-package's ``lax.scan``) on CPU tensors.
+The paper gathers the predicate-passing rows and computes their distances.
+The device scan is the fused filter + distance + top-k of
+kernels/filtered_topk, with the filter evaluated as the compiled DNF
+program: the hand-written kernel on CUDA tensors, its plain chunked scan
+(the counterpart of the JAX package's ``lax.scan``, which computes every
+row's distance and masks the failures to +inf) on CPU tensors.  On the
+card the kernel counts each query's passing rows first and serves a query
+under its break-even share the paper's way -- the filter first, then an
+exact distance for the passing rows only -- and a denser one with a TF32
+screen of every row before the filter; both give the same bits.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..kernels.filtered_topk import ops as ft_ops
+from ..obs.trace import open_span
 
 
 # pad_db's fill for each array: vectors, norms, ints, floats
@@ -45,7 +50,27 @@ def prefbf_topk(vectors, norms, ints, floats, queries, programs, *,
     vectors (N, d), norms (N,), ints (N, m_i), floats (N, m_f);
     queries (B, d); programs batched filter programs; ``valid`` an optional
     (B,) bool query mask (bucket padding) -- False rows return -1 / +inf.
+    Inside a sampled trace's open span (the router's ``brute``/``search``),
+    on the card, the span's ``prefiltered_queries`` gets the valid queries
+    the kernel served filter first added to it (a delta or a shard scan
+    under the same span adds its own), a device scalar read when the trace
+    finishes.  Untraced, or on CPU tensors, no op is added.
     Returns ids (B, k) int32 (-1 for missing) and dists (B, k) (+inf missing).
     """
-    return ft_ops.filtered_topk(vectors, norms, ints, floats, queries,
-                                programs, k=k, valid=valid, chunk=chunk)
+    traced = open_span()                             # (trace, span) or None
+    routes = None
+    if traced is not None and queries.is_cuda:
+        dev = queries.device
+        routes = torch.empty((queries.shape[0],), dtype=torch.int32,
+                             device=dev)
+        if valid is not None:   # the one copy up the wrapper would make
+            valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+    out = ft_ops.filtered_topk(vectors, norms, ints, floats, queries,
+                               programs, k=k, valid=valid, chunk=chunk,
+                               routes=routes)
+    if routes is not None:
+        served = (routes if valid is None else routes * valid).sum()
+        attrs = traced[1].attrs     # summed over the scans under the span
+        attrs["prefiltered_queries"] = attrs.get("prefiltered_queries",
+                                                 0) + served
+    return out

@@ -1,18 +1,39 @@
 // Fused filtered brute-force top-k: L2 distance + DNF filter program +
 // PreFBF mask (fail -> dropped) or exclusion distance (+D, Eq. 2) + running
-// top-k, as a TF32 tensor-core screen followed by an exact f32 re-score.
+// top-k, on one of two paths chosen per query on the card: a TF32
+// tensor-core screen followed by an exact f32 re-score (every query in
+// exclusion mode, dense filters in PreFBF mode), or, in PreFBF mode, the
+// filter first and an exact f32 distance for the passing pairs only.
 //
 // Replaces the TPU kernel src/repro/kernels/filtered_topk/kernel.py:
 // filtered_topk_pallas (body _kernel, helpers _eval_program_tile and
 // _topk_merge).
 //
-// What bounds it on an H100: operations.  Every (query, row) pair costs a
-// d-long dot product, 2*B*N*d operations against 4*N*d bytes read once
-// (B = 1024, N = 4M, d = 128: 1.05e12 operations, 2.1 GB).  Computed
-// exactly on the f32 FMA pipes that is 15.6 ms at 67 TFLOP/s; this kernel
-// computes every dot approximately on the tensor cores in TF32 (495 TFLOP/s
-// dense: a 2.12 ms bound) and exactly only for the few pairs that the
-// approximation cannot rule out.  No returned number passes through TF32.
+// What bounds each path on an H100.  The screen: operations.  Every
+// (query, row) pair costs a d-long dot product, 2*B*N*d operations against
+// 4*N*d bytes read once (B = 1024, N = 4M, d = 128: 1.05e12 operations,
+// 2.1 GB).  Computed exactly on the f32 FMA pipes that is 15.6 ms at 67
+// TFLOP/s; the screen computes every dot approximately on the tensor cores
+// in TF32 (495 TFLOP/s dense: a 2.12 ms bound) and exactly only for the
+// pairs that the approximation cannot rule out.  The filter-first path:
+// bytes.  It tests every pair's filter (a few instructions for 32 pairs, on
+// attributes read once per 32 queries) and reads the d-long row and query
+// of each passing pair only, about 2*B*N*s*d operations at a passing share
+// s.  Rows read once would bound it (B = 1000, N = 1M, d = 960, s = 0.1-0.5
+// %: 3.86 GB, 1.15 ms); it reads each passing pair's row on its own, 2.7e6
+// rows (10.4 GB) there, and takes ~6.3 ms on an H100.
+//
+// The choice (ft_screen_count, filter_first).  In PreFBF mode a count pass
+// first counts, per query, the non-pad rows its filter passes; a query
+// whose count is at most FF_SHARE * N (N the rows scanned, pad rows
+// included, as both paths visit them) takes the filter-first path, the
+// others the screen; each kernel treats the other path's queries as dead
+// lanes, and a block with no query of its own returns at once.
+// FF_SHARE is the break-even of the two paths' per-pair costs measured on
+// an H100 (see FF_SHARE).  Exclusion mode always takes the screen: there a
+// failing row is still an answer (key + D).  Both paths return the exact
+// filtered top-k by (key, id) of the same per-pair chain below, so the
+// choice moves only time, never a bit.
 //
 // The screen.  mma.sync.m16n8k8 (TF32 inputs, f32 accumulators) gives an
 // approximate dot a~ for every pair of a tile.  The operands go in as their
@@ -52,19 +73,22 @@
 // list is screened out.  There is no sqrt per pair: the comparison is in
 // the squared domain.
 //
-// Per candidate, in this order: the filter program (favor::eval_row); the
-// screen's L2 against the threshold of that outcome (in PreFBF mode a
-// failing row stops here); the exact distance -- one fmaf chain over dims
-// 0..d-1 from 0.f, then favor::l2_from_dot -- from the exact query and row
-// values; + D where the row fails, in exclusion mode; clamp to BIG;
+// Per screen candidate, in this order: the filter program
+// (favor::eval_row); the screen's L2 against the threshold of that
+// outcome (in PreFBF mode a failing row stops here); the exact distance --
+// one fmaf chain over dims 0..d-1 from 0.f, then favor::l2_from_dot --
+// from the exact query and row values; + D where the row fails, in
+// exclusion mode; clamp to BIG;
 // insertion when (key, id) comes before the list's last entry and strictly
 // after the per-query lower bound (after_d, after_i) when one is given
 // (how the wrapper chains passes of KMAX for a larger k,
-// kernels/_common.py chain_topk).  Every returned distance comes from that
-// per-pair chain, so it does not depend on the tile, the split or the
-// batch width: bucket padding relies on it.
+// kernels/_common.py chain_topk).  The filter-first path runs the same
+// steps on each non-pad pair whose filter passes, without the screen's L2.
+// Every returned distance comes from that per-pair chain, so it does not
+// depend on the path, the tile, the split or the batch width: bucket
+// padding relies on it.
 //
-// Design:
+// Design of the screen (ft_screen):
 //  * a block owns a tile of QB = 128 queries for its whole run, staged in
 //    shared memory once (when it fits beside the rest: d <= 288 at k = 10;
 //    wider queries stream with the rows, chunk by chunk, from L2); blocks
@@ -101,6 +125,34 @@
 //  * no block carries state into another: favor::merge_splits
 //    (topk_merge.cuh) merges the splits' lists per query in the same
 //    (key, id) order.
+//
+// Design of the filter-first path (ft_screen_count, ft_screen_prefilter):
+//  * both kernels walk the grid of the screen's DB splits with blocks of
+//    FQ = 32 queries and FW = 4 warps; a warp takes rounds of 32
+//    consecutive rows of the split (warp w: rounds w, w + FW, ...), lane l
+//    row l of the round, whose norm and first AMAX attributes of each kind
+//    it loads coalesced, one round ahead;
+//  * the block's hulls (favor::build_hull) become tables that map a row's
+//    value to the mask of the 32 queries that admit it: per int column
+//    and value, per float column the 64 sorted interval ends with the mask
+//    at each end and in each gap (a binary search); so a lane tests its
+//    row against all 32 hulls in a few instructions.  Where a query's hull
+//    is its program (one live disjunct, no NaN bound, at most AMAX columns
+//    of each kind) the tables decide; else favor::eval_row does;
+//  * a 32 x 32 bit transpose (shuffles) turns the round's per-row query
+//    masks into per-query row masks;
+//  * ft_screen_count writes each block's passing count per query to a
+//    (B, splits) scratch, which each block of the other two kernels sums
+//    for its own queries: no buffer needs zeroing, no host reads it;
+//  * ft_screen_prefilter appends each round's passing pairs (prefix count
+//    over the lanes) to a buffer of its warp; each time it holds 32, the
+//    warp copies the pairs' rows and queries TD dims at a time with
+//    cp.async (coalesced, all in flight) into two tiles, lane i runs pair
+//    i's chain over them, and each owner lane inserts its query's keys
+//    into its list -- one list per (warp, query), slot-major, no atomics,
+//    no block barrier in the row loop;
+//  * at the end the FW lists of each query are merged by its owner thread
+//    into the block's list for the split, in (key, id) order.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -118,7 +170,7 @@ constexpr int DCMIN = 32;           // dims per ring stage, at least
 constexpr int WARPS = 8;            // 4 (queries) x 2 (rows) warp tiles
 constexpr int TPB = 32 * WARPS;
 // The longest list of one pass: the most for which the resident layout
-// (query tile and whole-row stages) fits at d = 128, 45,440 words beside
+// (query tile and whole-row stages) fits at d = 128, 45,568 words beside
 // 256 words per list entry within 58,112 (make_layout); a larger k chains
 // passes in the wrapper.
 constexpr int KMAX = 48;
@@ -126,6 +178,23 @@ constexpr int STAGES = 2;           // cp.async ring stages
 constexpr int PC = 16;              // pending candidates per query a round
 constexpr int CAP = 2048;           // candidate buffer entries per block
 constexpr int SCORED = 1 << 16;     // candidate tag bit: exact key known
+// The filter-first path (ft_screen_count, ft_screen_prefilter).
+constexpr int FQ = 32;              // queries per block: one per lane
+constexpr int FW = 4;               // warps per block: row phases
+constexpr int FTPB = 32 * FW;
+constexpr int FBUF = 64;            // a warp's passing pairs, buffered
+constexpr int AMAX = 4;             // attributes of each kind pre-checked
+// The break-even passing share: a query whose filter passes at most
+// FF_SHARE * N rows takes the filter-first path.  Measured on an H100 SXM
+// (700 W; tools/time_filtered_topk.py: one range filter of share s for the
+// whole batch, PreFBF mode against exclusion mode with D = +inf, which
+// answers the same on the screen): the filter-first call costs 1.4 ps per
+// evaluated pair + s * 225 ps per passing pair at d = 128 (B 1,024, N 4M;
+// 2.0 + s * 1,643 ps at d = 960, B 1,000, N 1M), the screen 6.1-5.6 ps a
+// pair at s = 2-5 % (d = 128; 76-71 ps at d = 960).  They meet at s = 2.1 %
+// at d = 128 and 4.2 % at d = 960; the constant takes the lower, so no
+// query of either width leaves the screen for a slower path.
+constexpr double FF_SHARE = 0.02;
 static_assert((QB / 32) * (RT / 32) == WARPS, "warp tiles cover the block");
 static_assert(TPB >= QB, "one owner thread per query");
 
@@ -145,6 +214,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -178,6 +253,15 @@ __device__ __forceinline__ void screen_tau2(float tau, float D, int exclude,
   t2[1] = exclude && tf > 0.f ? __fmul_ru(tf, tf) : NAN;
 }
 
+// PreFBF mode's route of query qi: the filter-first path when the count
+// pass's partial counts (B x S, ft_screen_count) sum to at most `cut`.
+__device__ __forceinline__ bool filter_first(const int* __restrict__ pcount,
+                                             int S, int qi, long long cut) {
+  long long c = 0;
+  for (int s = 0; s < S; ++s) c += pcount[(size_t)qi * S + s];
+  return c <= cut;
+}
+
 struct Layout {
   int dp, ldq, dc, ldv, stage, resident;
   size_t ring, perq, lists, pend, cand;  // offsets in 4-byte words
@@ -198,8 +282,8 @@ inline Layout make_layout(int d, int k, int resident, int full_rows) {
   L.resident = resident;
   L.stage = RT * L.ldv + (resident ? 0 : QB * L.ldv) + RT;
   L.ring = resident ? (size_t)QB * L.ldq : 0;
-  L.perq = L.ring + (size_t)STAGES * L.stage;   // 10 arrays of QB
-  L.lists = L.perq + 10 * QB;                   // k x QB keys, k x QB ids
+  L.perq = L.ring + (size_t)STAGES * L.stage;   // 11 arrays of QB
+  L.lists = L.perq + 11 * QB;                   // k x QB keys, k x QB ids
   L.pend = L.lists + 2 * (size_t)k * QB;        // PC x QB keys, ids
   L.cand = L.pend + 2 * (size_t)PC * QB;        // CAP rows, tags, values
   L.words = L.cand + 3 * (size_t)CAP;
@@ -228,7 +312,8 @@ __global__ void __launch_bounds__(TPB, 1) ft_screen(
     const float* __restrict__ fhi, const float* __restrict__ dvec,
     const float* __restrict__ after_d, const int* __restrict__ after_i,
     int B, int N, int d, int mi, int mf, int W, int k, int exclude,
-    int rows_per_split, float eps, Layout L, int* __restrict__ counts,
+    int rows_per_split, float eps, Layout L, const int* __restrict__ pcount,
+    long long cut, int* __restrict__ routes, int* __restrict__ counts,
     int* __restrict__ rescored, float* __restrict__ part_d,
     int* __restrict__ part_i) {
   extern __shared__ float4 smem4[];
@@ -244,6 +329,7 @@ __global__ void __launch_bounds__(TPB, 1) ft_screen(
   int* cnt = aft_i + QB;                       // pending entries
   int* scnt = cnt + QB;                        // screen candidates
   int* rcnt = scnt + QB;                       // exact re-scores
+  int* mine = rcnt + QB;                       // the query takes the screen
   float* list_d = sm + L.lists;                // slot j of q: j * QB + q
   int* list_i = reinterpret_cast<int*>(list_d + (size_t)k * QB);
   float* pend_d = sm + L.pend;
@@ -265,6 +351,12 @@ __global__ void __launch_bounds__(TPB, 1) ft_screen(
   const int nch = L.dp / dc;
   const int total = tiles * nch;
   const bool vec4 = (d & 3) == 0;
+
+  // -- the block's queries: those of the screen (all in exclusion mode) -----
+  const bool own =
+      tid < nq && (pcount == nullptr ||
+                   !filter_first(pcount, gridDim.y, q0 + tid, cut));
+  if (pcount != nullptr && !__syncthreads_or(own)) return;
 
   // -- the query tile, |q|^2, the per-query state ---------------------------
   if (L.resident) {
@@ -289,8 +381,9 @@ __global__ void __launch_bounds__(TPB, 1) ft_screen(
     qn[q] = s;
     qe[q] = eps * sqrtf(s);
     Dq[q] = q < nq ? dvec[q0 + q] : 0.f;
+    mine[q] = own;
     float t2[2] = {NAN, NAN};
-    if (q < nq) screen_tau2(BIG, Dq[q], exclude, t2);
+    if (own) screen_tau2(BIG, Dq[q], exclude, t2);
     tau2[q] = t2[0];
     tau2[QB + q] = t2[1];
     const bool lb = after_d != nullptr && q < nq;
@@ -564,13 +657,503 @@ __global__ void __launch_bounds__(TPB, 1) ft_screen(
 
   for (int e = tid; e < nq * k; e += TPB) {
     const int q = e / k, j = e - q * k;
+    if (!mine[q]) continue;                  // the filter-first path's
     const size_t off = ((size_t)(q0 + q) * gridDim.y + split) * k + j;
     part_d[off] = list_d[j * QB + q];
     part_i[off] = list_i[j * QB + q];
   }
-  if (counts != nullptr && tid < nq) atomicAdd(counts + q0 + tid, scnt[tid]);
-  if (rescored != nullptr && tid < nq)
-    atomicAdd(rescored + q0 + tid, rcnt[tid]);
+  if (!own) return;
+  if (counts != nullptr) atomicAdd(counts + q0 + tid, scnt[tid]);
+  if (rescored != nullptr) atomicAdd(rescored + q0 + tid, rcnt[tid]);
+  if (routes != nullptr && split == 0) routes[q0 + tid] = 0;
+}
+
+
+// -- the filter-first path ---------------------------------------------------
+
+// The hull of a block's queries as tables, per attribute column c < AMAX,
+// that give for a row's value the mask of the queries whose hull admits it
+// (bit q for query q): for an int column, allow[c][v] for v < 32 (no
+// query admits another value); for a float column, the 2 FQ interval ends
+// sorted, e[0..63], and the mask at each end and in each gap between two
+// (gap g lies between e[g - 1] and e[g]; gaps 0 and 64 are empty, as no
+// interval reaches past its own ends).  A float's mask is found by binary
+// search; NaN gets none.
+constexpr int SEG = 64 + 64 + 65;   // e, at-end masks, gap masks
+
+// Shared memory of a filter-first block, in 4-byte words: the hull tables,
+// |q|^2, per (warp, query) counts; with `lists`, the FW x k x FQ lists,
+// each warp's FBUF buffered pairs, its 32 scored keys and its two tiles of
+// 32 pairs x TD dims (rows, queries).  Every offset is even: the tiles
+// take 8-byte copies.  (The programs stay in global memory: favor::eval_row
+// reads them only where a hull is not its program.)
+struct FLayout {
+  size_t allow, seg, qn, cnt, ld, li, brow, bq, bkey, tv, tq, words;
+};
+
+constexpr int TD = 64;              // dims of a pair per tile chunk
+constexpr int TLD = TD + 2;         // a tile's row stride: the float2 reads
+                                    // of 16 lanes hit 32 different banks
+
+inline FLayout make_flayout(int k, int lists) {
+  FLayout F;
+  const size_t tile = (size_t)FW * 32 * TLD;
+  F.allow = 0;
+  F.seg = F.allow + AMAX * 32;
+  F.qn = F.seg + AMAX * SEG;
+  F.cnt = F.qn + FQ;
+  F.ld = F.cnt + (size_t)FW * FQ;
+  F.li = F.ld + (lists ? (size_t)FW * k * FQ : 0);
+  F.brow = F.li + (lists ? (size_t)FW * k * FQ : 0);
+  F.bq = F.brow + (lists ? (size_t)FW * FBUF : 0);
+  F.bkey = F.bq + (lists ? (size_t)FW * FBUF : 0);
+  F.tv = F.bkey + (lists ? (size_t)FW * 32 : 0);
+  F.tq = F.tv + (lists ? tile : 0);
+  F.words = F.tq + (lists ? tile : 0);
+  return F;
+}
+
+// Query qi's program.
+struct Program {
+  const float* valid;
+  const long long* imask;
+  const float* flo;
+  const float* fhi;
+};
+
+__device__ __forceinline__ Program program_of(
+    const float* __restrict__ valid, const long long* __restrict__ imask,
+    const float* __restrict__ flo, const float* __restrict__ fhi, int qi,
+    int W, int mi, int mf) {
+  const size_t g = (size_t)qi * W;
+  return {valid + g, imask + g * mi, flo + g * mf, fhi + g * mf};
+}
+
+// The block's filters, set up by warp 0 (lane q for query q): the hull
+// tables of favor::build_hull's hulls, and two masks over the queries,
+// returned to every thread: `live` (the `mine` queries) and `exact`, whose
+// hull is its program (one live disjunct, every column within the hull,
+// no NaN bound: on one disjunct the hull's bit and interval tests are
+// favor::eval_row's), so that the tables decide alone.
+__device__ __forceinline__ void setup_filters(
+    const float* __restrict__ valid, const long long* __restrict__ imask,
+    const float* __restrict__ flo, const float* __restrict__ fhi, int q0,
+    int nq, int W, int mi, int mf, const FLayout& F, float* sm, int tid,
+    bool mine, unsigned& live, unsigned& exact) {
+  unsigned* allow = reinterpret_cast<unsigned*>(sm + F.allow);
+  unsigned* flags = reinterpret_cast<unsigned*>(sm + F.cnt);  // 2 words
+  if (tid < 32) {
+    const int q = tid;
+    const bool in = q < nq;
+    const Program P =
+        program_of(valid, imask, flo, fhi, q0 + (in ? q : 0), W, mi, mf);
+    favor::Hull<AMAX> h;
+    favor::build_hull<AMAX>(P.valid, P.imask, P.flo, P.fhi, in ? W : 0, mi,
+                            mf, h);
+    int nlive = 0, w1 = 0;
+    for (int w = 0; w < (in ? W : 0); ++w)
+      if (P.valid[w] > 0.f) {
+        ++nlive;
+        w1 = w;
+      }
+    bool ex = nlive == 1 && mi <= AMAX && mf <= AMAX;
+    for (int c = 0; c < mf && ex; ++c)
+      ex = !isnan(P.flo[w1 * mf + c]) && !isnan(P.fhi[w1 * mf + c]);
+    for (int c = 0; c < min(mi, AMAX); ++c)
+      for (int v = 0; v < 32; ++v) {
+        const unsigned b = __ballot_sync(0xffffffffu, h.ints[c] >> v & 1u);
+        if (q == 0) allow[c * 32 + v] = b;
+      }
+    for (int c = 0; c < min(mf, AMAX); ++c) {
+      float* e = sm + F.seg + c * SEG;
+      unsigned* at = reinterpret_cast<unsigned*>(e + 64);
+      unsigned* gap = at + 64;
+      const float lo = h.lo[c], hi = h.hi[c];  // never NaN (build_hull)
+      // the 64 ends in order: rank = smaller ends + equal ends before
+      int rlo = 0, rhi = 0;
+      for (int i = 0; i < 64; ++i) {
+        const float x = __shfl_sync(0xffffffffu, i < 32 ? lo : hi, i & 31);
+        rlo += x < lo || (x == lo && i < q);
+        rhi += x < hi || (x == hi && i < 32 + q);
+      }
+      e[rlo] = lo;
+      e[rhi] = hi;
+      __syncwarp();
+      for (int i = 0; i < 64; ++i) {
+        const float x = e[i];
+        const unsigned b = __ballot_sync(0xffffffffu, lo <= x && x <= hi);
+        const unsigned g = __ballot_sync(
+            0xffffffffu, i > 0 && lo <= e[i - 1] && hi >= x);
+        if (q == 0) {
+          at[i] = b;
+          gap[i] = g;
+        }
+      }
+      if (q == 0) gap[64] = 0u;
+    }
+    const unsigned lv = __ballot_sync(0xffffffffu, in && mine);
+    const unsigned xm = __ballot_sync(0xffffffffu, ex);
+    if (q == 0) {
+      flags[0] = lv;
+      flags[1] = xm;
+    }
+  }
+  __syncthreads();
+  live = flags[0];
+  exact = flags[1];
+  __syncthreads();  // the counts' words are free again
+}
+
+// The queries of a float column's table whose hull interval holds f.
+__device__ __forceinline__ unsigned float_mask(const float* seg, float f) {
+  if (isnan(f)) return 0u;
+  int n = 0;  // the ends <= f
+#pragma unroll
+  for (int step = 32; step; step >>= 1)
+    if (seg[n + step - 1] <= f) n += step;
+  n += n == 63 && seg[63] <= f;
+  const unsigned* at = reinterpret_cast<const unsigned*>(seg + 64);
+  return n > 0 && seg[n - 1] == f ? at[n - 1] : at[64 + n];
+}
+
+// 32 x 32 bit transpose across a warp: lane r's bit c becomes lane c's
+// bit r.
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+  const unsigned lowm[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
+                            0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int j = 16 >> s;
+    const unsigned y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = lane & j ? (x & ~lowm[s]) | ((y & ~lowm[s]) >> j)
+                 : (x & lowm[s]) | ((y & lowm[s]) << j);
+  }
+  return x;
+}
+
+// The rows of a block's split, walked by each warp in rounds of 32
+// consecutive rows (warp w takes rounds w, w + FW, ...).  Lane l takes row
+// base + l: its norm and first AMAX attributes of each kind, loaded
+// coalesced one round ahead; the tables give the live queries whose hull
+// admits them, and favor::eval_row decides for each query whose hull is
+// not its program.  The warp transposes the rows' query masks, and calls
+// at(base, rows), rows lane q's mask of the round's rows that pass query
+// q's filter.  Returns the warp's count of non-pad rows.
+template <typename At>
+__device__ __forceinline__ int walk_rows(
+    const float* __restrict__ norms, const int* __restrict__ ints,
+    const float* __restrict__ floats, int row0, int row1, int warp, int lane,
+    const float* __restrict__ valid, const long long* __restrict__ imask,
+    const float* __restrict__ flo, const float* __restrict__ fhi, int q0,
+    int W, int mi, int mf, const FLayout& F, float* sm, unsigned live,
+    unsigned exact, At at) {
+  const unsigned* allow = reinterpret_cast<const unsigned*>(sm + F.allow);
+  const int rounds = row1 > row0 ? (row1 - row0 + 31) / 32 : 0;
+  const int ni = min(mi, AMAX), nf = min(mf, AMAX);
+  int gated = 0;
+  float vn = NAN;
+  int ai[AMAX];
+  float af[AMAX];
+  auto load = [&](int rd) {
+    const int r = row0 + rd * 32 + lane;
+    const bool in = rd < rounds && r < row1;
+    vn = in ? __ldg(norms + r) : NAN;
+#pragma unroll
+    for (int c = 0; c < AMAX; ++c) {
+      ai[c] = in && c < ni ? __ldg(ints + (size_t)r * mi + c) : 0;
+      af[c] = in && c < nf ? __ldg(floats + (size_t)r * mf + c) : 0.f;
+    }
+  };
+  load(warp);
+  for (int rd = warp; rd < rounds; rd += FW) {
+    const int base = row0 + rd * 32, row = base + lane;
+    const bool real = vn < BIG;  // a pad row's norm is +inf or >= BIG
+    unsigned pass = real ? live : 0u;
+#pragma unroll
+    for (int c = 0; c < AMAX; ++c)
+      if (c < ni) {
+        const unsigned v = (unsigned)ai[c];
+        pass &= v < 32u ? allow[c * 32 + v] : 0u;
+      }
+#pragma unroll
+    for (int c = 0; c < AMAX; ++c)
+      if (c < nf && pass) pass &= float_mask(sm + F.seg + c * SEG, af[c]);
+    load(rd + FW);
+    gated += __popc(__ballot_sync(0xffffffffu, real));
+    for (unsigned m = pass & ~exact; m; m &= m - 1) {
+      const int q = __ffs(m) - 1;
+      const Program P = program_of(valid, imask, flo, fhi, q0 + q, W, mi, mf);
+      if (!favor::eval_row(P.valid, P.imask, P.flo, P.fhi, W, mi, mf,
+                           ints + (size_t)row * mi, floats + (size_t)row * mf))
+        pass &= ~(1u << q);
+    }
+    at(base, transpose32(pass, lane));
+  }
+  return gated;
+}
+
+// The count pass: each block's count of the non-pad rows of its split that
+// each of its queries' filters passes, to pcount (B x S).
+__global__ void __launch_bounds__(FTPB, 8) ft_screen_count(
+    const float* __restrict__ norms, const int* __restrict__ ints,
+    const float* __restrict__ floats, const float* __restrict__ valid,
+    const long long* __restrict__ imask, const float* __restrict__ flo,
+    const float* __restrict__ fhi, int B, int N, int mi, int mf, int W,
+    int rows_per_split, FLayout F, int* __restrict__ pcount) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  int* cnt = reinterpret_cast<int*>(sm + F.cnt);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * FQ, nq = min(FQ, B - q0);
+  const int split = blockIdx.y, S = gridDim.y;
+  const int row0 = split * rows_per_split;
+  const int row1 = min(N, row0 + rows_per_split);
+  unsigned live, exact;
+  setup_filters(valid, imask, flo, fhi, q0, nq, W, mi, mf, F, sm, tid, true,
+                live, exact);
+  int c = 0;  // lane q: query q's passing rows
+  walk_rows(norms, ints, floats, row0, row1, warp, lane, valid, imask, flo,
+            fhi, q0, W, mi, mf, F, sm, live, exact,
+            [&](int, unsigned rows) { c += __popc(rows); });
+  cnt[warp * FQ + lane] = c;
+  __syncthreads();
+  if (tid < nq) {
+    int t = 0;
+    for (int w = 0; w < FW; ++w) t += cnt[w * FQ + tid];
+    pcount[(size_t)(q0 + tid) * S + split] = t;
+  }
+}
+
+// The filter-first top-k of the block's queries that the count pass routed
+// here (see the note at the top): per split, like ft_screen, into part_d /
+// part_i; the other queries' lists are ft_screen's.
+__global__ void __launch_bounds__(FTPB, 4) ft_screen_prefilter(
+    const float* __restrict__ queries, const float* __restrict__ vec,
+    const float* __restrict__ norms, const int* __restrict__ ints,
+    const float* __restrict__ floats, const float* __restrict__ valid,
+    const long long* __restrict__ imask, const float* __restrict__ flo,
+    const float* __restrict__ fhi, const float* __restrict__ after_d,
+    const int* __restrict__ after_i, int B, int N, int d, int mi, int mf,
+    int W, int k, int rows_per_split, FLayout F,
+    const int* __restrict__ pcount, long long cut, int* __restrict__ routes,
+    int* __restrict__ counts, int* __restrict__ rescored,
+    float* __restrict__ part_d, int* __restrict__ part_i) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* qn = sm + F.qn;                      // |q|^2 (the kernel's chain)
+  int* cnt = reinterpret_cast<int*>(sm + F.cnt);
+  float* ld = sm + F.ld;                      // slot j of (warp, q):
+  int* li = reinterpret_cast<int*>(sm + F.li);  //   (warp * k + j) * FQ + q
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* brow = reinterpret_cast<int*>(sm + F.brow) + warp * FBUF;
+  int* bq = reinterpret_cast<int*>(sm + F.bq) + warp * FBUF;
+  float* bkey = sm + F.bkey + warp * 32;
+  float* tv = sm + F.tv + warp * 32 * TLD;    // pair i's dims at i * TLD
+  float* tq = sm + F.tq + warp * 32 * TLD;    // pair i's query dims
+  const int q0 = blockIdx.x * FQ, nq = min(FQ, B - q0);
+  const int split = blockIdx.y, S = gridDim.y;
+  const int row0 = split * rows_per_split;
+  const int row1 = min(N, row0 + rows_per_split);
+  const int qi = q0 + lane;
+  const bool mine = lane < nq && filter_first(pcount, S, qi, cut);
+  if (!__syncthreads_or(mine)) return;
+  unsigned live, exact;
+  setup_filters(valid, imask, flo, fhi, q0, nq, W, mi, mf, F, sm, tid, mine,
+                live, exact);
+  if (tid < FQ) {
+    float s = 0.f;
+    if (tid < nq) {
+      const float* x = queries + (size_t)(q0 + tid) * d;
+#pragma unroll 16
+      for (int j = 0; j < d; ++j) s = fmaf(__ldg(x + j), __ldg(x + j), s);
+    }
+    qn[tid] = s;
+  }
+  for (int j = 0; j < k; ++j) {
+    ld[(warp * k + j) * FQ + lane] = BIG;
+    li[(warp * k + j) * FQ + lane] = -1;
+  }
+  __syncthreads();
+  const bool lb = after_d != nullptr && mine;
+  const float aft_d = lb ? after_d[qi] : -INFINITY;
+  const int aft_i = lb ? after_i[qi] : -1;
+  float* my_d = ld + warp * k * FQ + lane;   // this lane's list, stride FQ
+  int* my_i = li + warp * k * FQ + lane;
+  int passed = 0;
+  float dot = 0.f;  // lane i's running chain for buffered pair i
+
+  // The exact keys of buffered pairs 0..n-1, lane i pair i: dims in chunks
+  // of TD, each pair's chunk of its row and of its query copied by the
+  // whole warp (cp.async, coalesced, every copy of the chunk in flight at
+  // once) into the warp's two tiles; then each lane's fmaf chain runs on
+  // over its own pair's chunk: dims 0..d-1 in order, so the chain is the
+  // one of the note at the top.  Then each owner lane inserts its query's
+  // keys, all owners at once.
+  auto score = [&](int n) {
+    __syncwarp();
+    const bool even = (d & 1) == 0;  // 8-byte copies (2 dims a lane)
+    for (int j0 = 0; j0 < d; j0 += TD) {
+      const int w = min(TD, d - j0);
+      for (int i = 0; i < n; ++i) {
+        const float* vr = vec + (size_t)brow[i] * d + j0;
+        const float* qr = queries + (size_t)(q0 + bq[i]) * d + j0;
+        float* dv = tv + i * TLD;
+        float* dq = tq + i * TLD;
+        if (even) {
+          const int c = 2 * lane;
+          if (c < w) {
+            cp_async8(dv + c, vr + c);
+            cp_async8(dq + c, qr + c);
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = lane + 32 * h;
+            if (c < w) {
+              cp_async4(dv + c, vr + c, 4);
+              cp_async4(dq + c, qr + c, 4);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+      if (lane < n) {
+        const float2* vp = reinterpret_cast<const float2*>(tv + lane * TLD);
+        const float2* qp = reinterpret_cast<const float2*>(tq + lane * TLD);
+        for (int j = 0; j < (w >> 1); ++j) {
+          const float2 v = vp[j], x = qp[j];
+          dot = fmaf(x.x, v.x, dot);
+          dot = fmaf(x.y, v.y, dot);
+        }
+        if (w & 1)
+          dot = fmaf(tq[lane * TLD + w - 1], tv[lane * TLD + w - 1], dot);
+      }
+      __syncwarp();
+    }
+    if (lane < n) {
+      const int q = bq[lane];
+      const float key = favor::l2_from_dot(__ldg(norms + brow[lane]), qn[q],
+                                           dot);
+      bkey[lane] = fminf(key, BIG);
+      dot = 0.f;
+    }
+    __syncwarp();
+    unsigned own = 0u;  // the entries of this lane's query: every owner
+    for (int e = 0; e < n; ++e) own |= (unsigned)(bq[e] == lane) << e;
+    passed += __popc(own);  // inserts its own at once
+    for (; own; own &= own - 1) {
+      const int e = __ffs(own) - 1;
+      const float key = bkey[e];
+      const int row = brow[e];
+      if (!(key < BIG) || !before(key, row, my_d[(k - 1) * FQ],
+                                  my_i[(k - 1) * FQ]) ||
+          !before(aft_d, aft_i, key, row))
+        continue;
+      int j = k - 1;
+      while (j > 0 &&
+             before(key, row, my_d[(j - 1) * FQ], my_i[(j - 1) * FQ])) {
+        my_d[j * FQ] = my_d[(j - 1) * FQ];
+        my_i[j * FQ] = my_i[(j - 1) * FQ];
+        --j;
+      }
+      my_d[j * FQ] = key;
+      my_i[j * FQ] = row;
+    }
+    __syncwarp();
+  };
+
+  // each lane's passing pairs (each row of its mask, its query) go to the
+  // warp's buffer in lane order, as many as fit; 32 at a time are scored
+  int nb = 0;
+  const int gated = walk_rows(
+      norms, ints, floats, row0, row1, warp, lane, valid, imask, flo, fhi, q0,
+      W, mi, mf, F, sm, live, exact, [&](int base, unsigned rows) {
+        if (!__any_sync(0xffffffffu, rows != 0u)) return;
+        for (unsigned rest = rows;;) {
+          const int own = __popc(rest);
+          int pre, total;  // exclusive prefix over the lanes, and the sum
+          if (__all_sync(0xffffffffu, own <= 1)) {
+            const unsigned b = __ballot_sync(0xffffffffu, own);
+            pre = __popc(b & ((1u << lane) - 1u));
+            total = __popc(b);
+          } else {
+            pre = own;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+              const int t = __shfl_up_sync(0xffffffffu, pre, o);
+              if (lane >= o) pre += t;
+            }
+            total = __shfl_sync(0xffffffffu, pre, 31);
+            pre -= own;
+          }
+          if (total == 0) break;
+          for (int slot = nb + pre; rest && slot < FBUF; ++slot) {
+            brow[slot] = base + __ffs(rest) - 1;
+            bq[slot] = lane;
+            rest &= rest - 1;
+          }
+          nb = min(FBUF, nb + total);
+          while (nb >= 32) {
+            score(32);
+            if (lane < nb - 32) {  // the tail moves to the front
+              brow[lane] = brow[32 + lane];
+              bq[lane] = bq[32 + lane];
+            }
+            nb -= 32;
+            __syncwarp();
+          }
+        }
+      });
+  if (nb > 0) score(nb);
+
+  // -- the FW lists of each query, merged by its owner thread --------------
+  cnt[warp * FQ + lane] = passed;
+  __syncthreads();
+  if (tid < FQ && mine) {
+    int head[FW];
+    int rs = 0;
+#pragma unroll
+    for (int w = 0; w < FW; ++w) {
+      head[w] = 0;
+      rs += cnt[w * FQ + tid];
+    }
+    float* pd = part_d + ((size_t)qi * S + split) * k;
+    int* pi = part_i + ((size_t)qi * S + split) * k;
+    for (int t = 0; t < k; ++t) {
+      float bd = BIG;
+      int bi = -1, bw = -1;
+#pragma unroll
+      for (int w = 0; w < FW; ++w) {
+        const int h = head[w];
+        if (h >= k) continue;
+        const float cd = ld[(w * k + h) * FQ + tid];
+        const int ci = li[(w * k + h) * FQ + tid];
+        if (cd < BIG && (bw < 0 || before(cd, ci, bd, bi))) {
+          bd = cd;
+          bi = ci;
+          bw = w;
+        }
+      }
+      pd[t] = bd;
+      pi[t] = bi;
+#pragma unroll
+      for (int w = 0; w < FW; ++w) head[w] += w == bw;
+    }
+    if (rescored != nullptr) atomicAdd(rescored + qi, rs);
+    if (routes != nullptr && split == 0) routes[qi] = 1;
+  }
+  if (counts != nullptr) {  // the non-pad rows: the warps' gated rows
+    __syncthreads();
+    if (lane == 0) cnt[warp * FQ] = gated;
+    __syncthreads();
+    if (tid < FQ && mine) {
+      int g = 0;
+      for (int w = 0; w < FW; ++w) g += cnt[w * FQ];
+      atomicAdd(counts + qi, g);
+    }
+  }
 }
 
 }  // namespace
@@ -582,10 +1165,13 @@ int filtered_topk_query_tile() { return QB; }
 int filtered_topk_tile_rows() { return RT; }
 
 // queries (B, d); after_d / after_i: (B,) per-query lower bound, or both
-// null; counts / rescored: (B,) int32 the screen's candidates / the exact
-// re-scores are added to, or null; part_d / part_i: (B, splits, k)
-// scratch; out_d / out_i: (B, k).
-// Returns cudaGetLastError() after the launches (0 = launched).
+// null; counts / rescored: (B,) int32 the screen's candidates (on the
+// filter-first path: the non-pad rows) / the exact re-scores are added to,
+// or null; routes: (B,) int32 set to 1 where the query took the
+// filter-first path and 0 where it took the screen, or null; pcount:
+// (B, splits) int32 scratch of the count pass (PreFBF mode; null in
+// exclusion mode); part_d / part_i: (B, splits, k) scratch; out_d / out_i:
+// (B, k).  Returns cudaGetLastError() after the launches (0 = launched).
 int filtered_topk_launch(const void* queries, const void* vec,
                          const void* norms, const void* ints,
                          const void* floats, const void* valid,
@@ -594,9 +1180,11 @@ int filtered_topk_launch(const void* queries, const void* vec,
                          const void* after_i, int B, int N, int d, int mi,
                          int mf, int W, int k, int exclude, int splits,
                          float eps, void* counts, void* rescored,
-                         void* part_d, void* part_i, void* out_d, void* out_i,
+                         void* routes, void* pcount, void* part_d,
+                         void* part_i, void* out_d, void* out_i,
                          void* stream) {
   if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
+  if (!exclude && pcount == nullptr) return (int)cudaErrorInvalidValue;
   const Layout L = pick_layout(d, k);
   const size_t smem = 4 * L.words;
   cudaError_t err = cudaFuncSetAttribute(
@@ -604,6 +1192,24 @@ int filtered_topk_launch(const void* queries, const void* vec,
   if (err != cudaSuccess) return (int)err;
   const int rows_per_split = (N + splits - 1) / splits;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const long long cut = (long long)(FF_SHARE * (double)N);
+  const dim3 fgrid((B + FQ - 1) / FQ, splits);
+  const FLayout FC = make_flayout(k, 0);
+  const FLayout FP = make_flayout(k, 1);
+  if (!exclude) {
+    err = cudaFuncSetAttribute(ft_screen_count,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(4 * FC.words));
+    if (err != cudaSuccess) return (int)err;
+    ft_screen_count<<<fgrid, FTPB, 4 * FC.words, st>>>(
+        static_cast<const float*>(norms), static_cast<const int*>(ints),
+        static_cast<const float*>(floats), static_cast<const float*>(valid),
+        static_cast<const long long*>(imask), static_cast<const float*>(flo),
+        static_cast<const float*>(fhi), B, N, mi, mf, W, rows_per_split, FC,
+        static_cast<int*>(pcount));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 grid((B + QB - 1) / QB, splits);
   ft_screen<<<grid, TPB, smem, st>>>(
       static_cast<const float*>(queries), static_cast<const float*>(vec),
@@ -613,10 +1219,31 @@ int filtered_topk_launch(const void* queries, const void* vec,
       static_cast<const float*>(fhi), static_cast<const float*>(dvec),
       static_cast<const float*>(after_d), static_cast<const int*>(after_i), B,
       N, d, mi, mf, W, k, exclude, rows_per_split, eps, L,
-      static_cast<int*>(counts), static_cast<int*>(rescored),
-      static_cast<float*>(part_d), static_cast<int*>(part_i));
+      exclude ? nullptr : static_cast<const int*>(pcount), cut,
+      static_cast<int*>(routes), static_cast<int*>(counts),
+      static_cast<int*>(rescored), static_cast<float*>(part_d),
+      static_cast<int*>(part_i));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (!exclude) {
+    err = cudaFuncSetAttribute(ft_screen_prefilter,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(4 * FP.words));
+    if (err != cudaSuccess) return (int)err;
+    ft_screen_prefilter<<<fgrid, FTPB, 4 * FP.words, st>>>(
+        static_cast<const float*>(queries), static_cast<const float*>(vec),
+        static_cast<const float*>(norms), static_cast<const int*>(ints),
+        static_cast<const float*>(floats), static_cast<const float*>(valid),
+        static_cast<const long long*>(imask), static_cast<const float*>(flo),
+        static_cast<const float*>(fhi), static_cast<const float*>(after_d),
+        static_cast<const int*>(after_i), B, N, d, mi, mf, W, k,
+        rows_per_split, FP, static_cast<const int*>(pcount), cut,
+        static_cast<int*>(routes), static_cast<int*>(counts),
+        static_cast<int*>(rescored), static_cast<float*>(part_d),
+        static_cast<int*>(part_i));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   favor::merge_splits<<<(B + 127) / 128, 128, 0, st>>>(
       static_cast<const float*>(part_d), static_cast<const int*>(part_i), B,
       splits, k, static_cast<float*>(out_d), static_cast<int*>(out_i));

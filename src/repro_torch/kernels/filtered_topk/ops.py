@@ -2,6 +2,13 @@
 (``csrc/filtered_topk.cu``; replaces the TPU kernel
 ``src/repro/kernels/filtered_topk/kernel.py:filtered_topk_pallas``).
 
+On CUDA tensors a call in PreFBF mode first counts, per query on the card,
+the rows its filter passes; a query under the kernel's break-even share
+takes the filter-first path (the filter, then an exact distance for the
+passing pairs only), the others and every query in exclusion mode the
+TF32 screen.  Both return the same bits; the choice moves only time, and
+the call reads nothing back to the host.
+
 Contract of the JAX package's ``ops.filtered_topk``: ids (B, k) int32 with -1
 for missing, dists (B, k) f32 with +inf for missing, ordered by (distance,
 id); ``valid`` an optional (B,) bool query mask whose False rows return
@@ -22,7 +29,7 @@ from ...core import filters as F
 
 NAME = "filtered_topk"
 _ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float]
-             + [ctypes.c_void_p] * 7)
+             + [ctypes.c_void_p] * 9)
 
 # The TF32 screen's margin (csrc/filtered_topk.cu, "The screen"): the
 # tensor cores read an f32 operand's upper 19 bits (truncation: relative
@@ -83,7 +90,7 @@ def filtered_topk_work(vectors, norms, ints, floats, queries, programs, *,
 def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
                   k: int = 10, dvec=None, exclude: bool = False, valid=None,
                   chunk: int = 8192, after=None, screen_counts=None,
-                  rescore_counts=None):
+                  rescore_counts=None, routes=None):
     """Fused filtered brute-force top-k over the DB.
 
     vectors (N, d) f32, norms (N,) f32, ints (N, m_i) int32, floats (N, m_f)
@@ -96,8 +103,11 @@ def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
     list length when k is larger (``_common.chain_topk``).
     ``screen_counts`` and ``rescore_counts``, optional (B,) int32 CUDA
     tensors, get each query's count of pairs that passed the kernel's TF32
-    screen, and of pairs whose distance it then computed exactly, added to
-    them.  Returns (ids, dists).
+    screen (on the filter-first path: the non-pad rows, whose filter it
+    evaluated), and of pairs whose distance it then computed exactly (there:
+    the passing ones), added to them.  ``routes``, an optional (B,) int32
+    CUDA tensor, is set to 1 where the query took the filter-first path and
+    0 where it took the screen.  Returns (ids, dists).
     """
     if not C.on_cuda(queries):
         return filtered_topk_plain(vectors, norms, ints, floats, queries,
@@ -121,13 +131,16 @@ def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
         C.check(NAME, "after_d", after[0], torch.float32, (b,), dev)
         C.check(NAME, "after_i", after[1], torch.int32, (b,), dev)
     for label, cnt in (("screen_counts", screen_counts),
-                       ("rescore_counts", rescore_counts)):
+                       ("rescore_counts", rescore_counts),
+                       ("routes", routes)):
         if cnt is not None:
             C.check(NAME, label, cnt, torch.int32, (b,), dev)
     if k < 1:
         raise ValueError(f"{NAME}: k={k} must be at least 1")
     lib, fn = _fn()
     if not (b and n):
+        if routes is not None:      # nothing to scan: no query was served
+            routes.zero_()
         return C.apply_missing(
             torch.full((b, k), -1, dtype=torch.int32, device=dev),
             torch.full((b, k), C.BIG, dtype=torch.float32, device=dev), valid)
@@ -141,6 +154,9 @@ def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
         out_i = torch.empty((b, kk), dtype=torch.int32, device=dev)
         part_d = torch.empty((b, splits, kk), dtype=torch.float32, device=dev)
         part_i = torch.empty((b, splits, kk), dtype=torch.int32, device=dev)
+        # the count pass's partial counts, written whole by its kernel
+        pcount = (None if exclude else
+                  torch.empty((b, splits), dtype=torch.int32, device=dev))
         ad, ai = (None, None) if aft is None else (C.ptr(aft[0]),
                                                    C.ptr(aft[1]))
         status = fn(C.ptr(queries), C.ptr(vectors), C.ptr(norms), C.ptr(ints),
@@ -150,7 +166,9 @@ def filtered_topk(vectors, norms, ints, floats, queries, programs, *,
                     mf, w, kk, int(bool(exclude)), splits, eps,
                     None if screen_counts is None else C.ptr(screen_counts),
                     None if rescore_counts is None else C.ptr(rescore_counts),
-                    C.ptr(part_d), C.ptr(part_i), C.ptr(out_d), C.ptr(out_i),
+                    None if routes is None else C.ptr(routes),
+                    None if pcount is None else C.ptr(pcount), C.ptr(part_d),
+                    C.ptr(part_i), C.ptr(out_d), C.ptr(out_i),
                     C.stream_ptr(dev))
         check_status(NAME, status)
         count_launch(NAME)

@@ -216,6 +216,99 @@ def test_filtered_topk_low_selectivity_and_pad_tail(dev, exclude):
     assert int(exact[(kd[:, -1] < 1e30)].min()) >= 10  # each returned pair
 
 
+# filters of about 100, 5, 0.5 and 0.05 % of the paper schema's rows (f0
+# uniform over [0, 100], i0 over 10 values) and one that no row passes
+_SHARES = (PF.TrueFilter(), PF.Range("f0", 0.0, 5.0),
+           PF.And(PF.Equality("i0", 3), PF.Range("f0", 10.0, 15.0)),
+           PF.And(PF.Equality("i0", 3), PF.Range("f0", 10.0, 10.5)),
+           PF.Range("f0", 200.0, 300.0))
+
+
+def _shares_case(dev, d, b=45, n=20_000, seed=0):
+    """n rows padded to a multiple of 8192 (the last splits all pad), b
+    queries cycling over ``_SHARES``, a ``valid`` mask with two lanes off."""
+    rng = np.random.default_rng(seed + d)
+    schema = PF.paper_schema()
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    norms = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
+    attrs = PF.random_attributes(schema, n, seed=seed + 1)
+    db = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+          for a in prefbf.pad_db(vecs, norms, attrs.ints, attrs.floats, 8192)]
+    progs = compile_programs([_SHARES[i % len(_SHARES)] for i in range(b)],
+                             schema, b, device=dev)
+    qs = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                         device=dev)
+    valid = torch.ones(b, dtype=torch.bool, device=dev)
+    valid[[1, 7]] = False
+    return db, qs, progs, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,lower", [(19, 10, False), (128, 48, False),
+                                       (960, 100, False), (128, 10, True),
+                                       (960, 48, True), (19, 100, True)])
+def test_filtered_topk_filter_first_matches_screen(dev, d, k, lower):
+    """A batch mixing queries on both sides of the break-even: PreFBF mode
+    (each query on the path its passing count picks) equals, bit for bit,
+    exclusion mode with D = +inf (every query on the TF32 screen, where a
+    failing row is never a candidate), and the plain version within the
+    tolerance; with a lower bound ``after`` too (k above 48: chained)."""
+    db, qs, progs, valid = _shares_case(dev, d)
+    b = qs.shape[0]
+    after = None
+    if lower:   # between each query's 3rd and 4th pair of a first pass (no
+        # bound at a returned distance, whose last bits the plain version's
+        # matmul may not reproduce)
+        fi, fd = ft.filtered_topk(*db, qs, progs, k=10)
+        after = (torch.where(fi[:, 3] >= 0, (fd[:, 2] + fd[:, 3]) / 2,
+                             KC.BIG).contiguous(),
+                 torch.full((b,), -1, dtype=torch.int32, device=dev))
+    inf = torch.full((b,), float("inf"), device=dev)
+    routes = torch.full((b,), -7, dtype=torch.int32, device=dev)
+    pre = ft.filtered_topk(*db, qs, progs, k=k, valid=valid, after=after,
+                           routes=routes)
+    exc = ft.filtered_topk(*db, qs, progs, k=k, dvec=inf, exclude=True,
+                           valid=valid, after=after)
+    assert torch.equal(pre[0], exc[0]) and torch.equal(pre[1], exc[1])
+    plain = ft.filtered_topk_plain(*db, qs, progs, k=k, valid=valid,
+                                   after=after)
+    m = topk_mismatch(plain[0].cpu().numpy(), plain[1].cpu().numpy(),
+                      pre[0].cpu().numpy(), pre[1].cpu().numpy(), rtol=TOL,
+                      atol=TOL)
+    assert m["dist_mismatch"] == 0 and m["id_mismatch"] == 0, m
+    assert int(pre[0].max()) < 20_000              # pad rows never returned
+    r = routes.cpu().numpy()
+    kinds = np.arange(b) % len(_SHARES)
+    assert set(r.tolist()) <= {0, 1}
+    assert (r[kinds == 0] == 0).all()              # `true`: the screen
+    assert (r[kinds >= 2] == 1).all()              # <= 0.5 %: filter first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [19, 128, 960])
+def test_filtered_topk_filter_first_counters(dev, d):
+    """On the filter-first path ``screen_counts`` gets the non-pad rows
+    (every pair whose filter it evaluated) and ``rescore_counts`` the
+    passing non-pad rows, as ``filters.eval_program_batched`` counts them;
+    on the screen the counters keep their bounds."""
+    db, qs, progs, _ = _shares_case(dev, d, seed=5)
+    b = qs.shape[0]
+    counts = torch.zeros(b, dtype=torch.int32, device=dev)
+    exact = torch.zeros(b, dtype=torch.int32, device=dev)
+    routes = torch.empty(b, dtype=torch.int32, device=dev)
+    ft.filtered_topk(*db, qs, progs, k=10, screen_counts=counts,
+                     rescore_counts=exact, routes=routes)
+    real = db[1] < KC.BIG
+    passing = (PF.eval_program_batched(progs, db[2], db[3])
+               & real[None, :]).sum(dim=1).to(torch.int32)
+    ff = routes == 1
+    assert bool(ff.any()) and bool((~ff).any())
+    assert bool((counts[ff] == int(real.sum())).all())
+    assert torch.equal(exact[ff], passing[ff])
+    assert bool((exact[~ff] <= counts[~ff]).all())
+    assert bool((counts[~ff] <= int(real.sum())).all())
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(dev):
     db, qs, progs, _ = _case(dev, 100, 16, 4, seed=1)

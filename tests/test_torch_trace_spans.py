@@ -15,7 +15,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.core import (BatchSpec, BuildSpec, FavorIndex,  # noqa: E402
                               HnswParams, ObsSpec, QuantSpec, SearchOptions,
-                              exclusion, router, search)
+                              exclusion, prefbf, router, search)
 from repro_torch.core import filters as F  # noqa: E402
 from repro_torch.core.search import SearchConfig  # noqa: E402
 from repro_torch.obs import Obs, profiling  # noqa: E402
@@ -343,3 +343,35 @@ def test_pq_traced_and_untraced_answers_are_bit_identical(pq_setup):
         counts.append((c.n, out))
     assert counts[0][0] == counts[1][0]
     assert torch.equal(counts[0][1][0], counts[1][1][0])
+
+
+def test_prefbf_on_cpu_adds_no_span_attribute(setup):
+    """On CPU tensors ``prefbf_topk`` under a sampled trace's span leaves
+    the span without ``prefiltered_queries`` (the plain scan has no path
+    to count) and runs the same torch ops as untraced; through the router,
+    the f32 brute route's ``brute``/``search`` span has no counter either."""
+    fi, q, flts = setup
+    progs = fi.compile_filters(flts)
+    pv, pn, pi, pf = fi._pf
+    valid = np.arange(B) < B - 2
+    runs = []
+    for traced_run in (False, True):
+        tr = T.RequestTrace(1, B, time.perf_counter)
+        with _Count() as c:
+            if traced_run:
+                with tr.span("search") as sp:
+                    out = prefbf.prefbf_topk(pv, pn, pi, pf, q, progs, k=5,
+                                             valid=valid)
+                assert "prefiltered_queries" not in sp.attrs
+            else:
+                out = prefbf.prefbf_topk(pv, pn, pi, pf, q, progs, k=5,
+                                         valid=valid)
+        runs.append((c.n, out))
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1][0], runs[1][1][0])
+    assert torch.equal(runs[0][1][1], runs[1][1][1])
+    obs = Obs(ObsSpec(slow_ms=None))
+    fi.query(q, flts, SearchOptions(k=5, force="brute"), obs=obs)
+    (brute,) = [s for s in obs.tracer.traces[-1].spans if s.name == "brute"]
+    (search_sp,) = [c for c in brute.children if c.name == "search"]
+    assert "prefiltered_queries" not in search_sp.attrs
