@@ -39,9 +39,9 @@ Both expose ``schema`` / ``sel_cfg`` so the router takes identical routing
 decisions wherever execution lands, and ``device``, where queries, programs
 and results live.  A live index's delta segment is scanned exactly and
 composed into both routes' results on the device; tombstones are +inf
-norms on the brute scans and the ``alive`` gate of the traversal.  The
-scans and the traversal run inside ``obs.profiling.annotate`` ranges (named
-as in the JAX package) when kernel annotations are on.
+norms on the brute scans and the ``alive`` gate of the traversal.  Their
+host ranges are the router's spans (``favor/graph/search``,
+``favor/brute/search``: ``obs.trace``), under kernel annotations.
 """
 from __future__ import annotations
 
@@ -61,9 +61,6 @@ from ..device import to_host
 from ..index.delta import compose_topk_dev
 from ..index.epochs import ComponentEpochs
 from ..index.live import LiveState
-# gated host-side profiler ranges (nullcontext unless ObsSpec enables
-# kernel annotations); obs.profiling imports nothing from core
-from ..obs.profiling import annotate as _annotate
 
 if TYPE_CHECKING:
     from .favor import FavorIndex
@@ -235,9 +232,8 @@ class LocalBackend:
                                              k=opts.k,
                                              p_min=idx.sel_cfg.p_min,
                                              xp=torch)
-            with _annotate("favor/local/graph_search"):
-                base = favor_graph_search(idx.g, queries, programs, D,
-                                          opts.search_config(), valid=valid)
+            base = favor_graph_search(idx.g, queries, programs, D,
+                                      opts.search_config(), valid=valid)
         else:
             b, dev = int(queries.shape[0]), self.device
             zero = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -267,26 +263,23 @@ class LocalBackend:
             dists = torch.full((b, opts.k), float("inf"), dtype=torch.float32,
                                device=dev)
         elif not opts.use_pq:
-            with _annotate("favor/local/prefbf_scan"):
-                ids, dists = prefbf.prefbf_topk(pv, pn, pi, pf, queries,
-                                                programs, k=opts.k,
-                                                chunk=idx.prefbf_chunk,
-                                                valid=valid)
+            ids, dists = prefbf.prefbf_topk(pv, pn, pi, pf, queries,
+                                            programs, k=opts.k,
+                                            chunk=idx.prefbf_chunk,
+                                            valid=valid)
         else:
             from ..quant import adc
             rr = opts.rerank if opts.rerank is not None else idx.rerank
             if idx.quantize == "pq":
-                with _annotate("favor/local/pq_adc_scan"):
-                    ids, dists = adc.pq_prefbf_topk(
-                        idx._codes, pn, pi, pf, queries, programs,
-                        idx._cb_dev[0], pv, k=opts.k, rerank=rr,
-                        chunk=idx.prefbf_chunk, valid=valid)
+                ids, dists = adc.pq_prefbf_topk(
+                    idx._codes, pn, pi, pf, queries, programs,
+                    idx._cb_dev[0], pv, k=opts.k, rerank=rr,
+                    chunk=idx.prefbf_chunk, valid=valid)
             else:
-                with _annotate("favor/local/sq_adc_scan"):
-                    ids, dists = adc.sq_prefbf_topk(
-                        idx._codes, *idx._cb_dev, pn, pi, pf, queries,
-                        programs, pv, k=opts.k, rerank=rr,
-                        chunk=idx.prefbf_chunk, valid=valid)
+                ids, dists = adc.sq_prefbf_topk(
+                    idx._codes, *idx._cb_dev, pn, pi, pf, queries,
+                    programs, pv, k=opts.k, rerank=rr,
+                    chunk=idx.prefbf_chunk, valid=valid)
         delta = self._delta()
         if delta is None:
             return ids, dists
@@ -798,9 +791,8 @@ class ShardedBackend:
         pad = queries.shape[0] - p_hat.shape[0]
         if pad:
             p_hat = torch.cat([p_hat, p_hat[-1:].expand(pad)])
-        with _annotate("favor/sharded/graph_search"):
-            ids, dists = self._fns(opts)["serve_graph_phat"](
-                self.db, queries, programs, p_hat, valid)
+        ids, dists = self._fns(opts)["serve_graph_phat"](
+            self.db, queries, programs, p_hat, valid)
         ids, dists = ids[:b], dists[:b]
         delta = self._delta()
         if delta is not None:
@@ -816,8 +808,7 @@ class ShardedBackend:
         queries, programs, valid, b = self._pad(queries, programs, valid)
         fn = "serve_brute_pq" if opts.use_pq else "serve_brute"
         fns = self._fns(opts, for_pq=opts.use_pq)
-        with _annotate(f"favor/sharded/{fn}"):
-            ids, dists = fns[fn](self.db, queries, programs, valid)
+        ids, dists = fns[fn](self.db, queries, programs, valid)
         ids, dists = ids[:b], dists[:b]
         delta = self._delta()
         if delta is not None:

@@ -48,6 +48,7 @@ from . import filters as F
 from .hnsw import HnswParams, build_hnsw
 from .search import SearchConfig, favor_graph_search
 from ..device import resolve_device
+from ..kernels._common import stable_topk
 
 
 def largest_divisor(n: int, cap: int) -> int:
@@ -401,20 +402,6 @@ def _charge(colls, g: int) -> None:
 # ---------------------------------------------------------------------------
 # Sharded serve steps
 # ---------------------------------------------------------------------------
-def _merge_topk(local_d: list, local_i: list, k: int, device):
-    """Gather the per-shard (B, k) results onto ``device`` in shard order
-    and sort-merge them: (B, S*k) -> stable sort -> first k, so ties go to
-    the lower shard (as ``jnp.argsort`` over the all-gather gives them).
-    Under a count it charges the all-gathers of the JAX merge, over the S
-    shards, the ids at the int64 they cross as."""
-    b, kl = local_d[0].shape
-    _charge(serve_collectives(b, kl), len(local_d))
-    d = torch.cat([x.to(device) for x in local_d], dim=1)
-    i = torch.cat([x.to(device, torch.int64) for x in local_i], dim=1)
-    order = torch.sort(d, dim=1, stable=True).indices[:, :k]
-    return d.gather(1, order), i.gather(1, order)
-
-
 def _block(x, i: int, n: int, dev):
     """Row block ``i`` of ``n`` equal blocks of a tensor, a numpy array or a
     program dict, on ``dev`` (None stays None)."""
@@ -491,7 +478,13 @@ def make_serve_fns(mesh: Mesh, cfg: SearchConfig, *, ef_sel: int | None = None,
                 ds.append(d)
                 is_.append(torch.where(i >= 0, i.to(torch.int64)
                                        + s * n_local, -1))
-            d, i = _merge_topk(ds, is_, cfg.k, out_dev)
+            # the shards' (B, k) results gathered in shard order, so ties
+            # go to the lower shard (as ``jnp.argsort`` over the JAX
+            # all-gather gives them); a count charges those all-gathers,
+            # the ids at the int64 they cross as
+            _charge(serve_collectives(*ds[0].shape), n_s)
+            d, i = stable_topk([x.to(out_dev) for x in ds], cfg.k,
+                               [x.to(out_dev) for x in is_])
             outs_i.append(torch.where(torch.isfinite(d), i, -1))
             outs_d.append(d)
         return torch.cat(outs_i), torch.cat(outs_d)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..kernels.filtered_topk import ops as ft_ops
-from ..obs.trace import open_span
+from ..obs.trace import open_span, trace_add
 
 
 # pad_db's fill for each array: vectors, norms, ints, floats
@@ -57,9 +57,8 @@ def prefbf_topk(vectors, norms, ints, floats, queries, programs, *,
     finishes.  Untraced, or on CPU tensors, no op is added.
     Returns ids (B, k) int32 (-1 for missing) and dists (B, k) (+inf missing).
     """
-    traced = open_span()                             # (trace, span) or None
     routes = None
-    if traced is not None and queries.is_cuda:
+    if queries.is_cuda and open_span() is not None:
         dev = queries.device
         routes = torch.empty((queries.shape[0],), dtype=torch.int32,
                              device=dev)
@@ -68,9 +67,7 @@ def prefbf_topk(vectors, norms, ints, floats, queries, programs, *,
     out = ft_ops.filtered_topk(vectors, norms, ints, floats, queries,
                                programs, k=k, valid=valid, chunk=chunk,
                                routes=routes)
-    if routes is not None:
-        served = (routes if valid is None else routes * valid).sum()
-        attrs = traced[1].attrs     # summed over the scans under the span
-        attrs["prefiltered_queries"] = attrs.get("prefiltered_queries",
-                                                 0) + served
+    if routes is not None:      # summed over the scans under the span
+        trace_add("prefiltered_queries",
+                  (routes if valid is None else routes * valid).sum())
     return out

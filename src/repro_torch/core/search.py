@@ -37,14 +37,15 @@ The counterpart of the JAX package's ``core/search.py``:
    is bit-stable across batch widths; it sets the ``waves`` diagnostic;
  * inside a sampled trace's open span (``obs.trace.open_span``: the
    router's ``search`` span under ``graph``) the loop adds its counters to
-   that span's attributes, summed over traversals: ``waves``, ``sync_ms``
-   (the time blocked in each wave's sync, each inside a
-   ``favor/graph/sync`` range under annotations), ``lanes_active`` /
-   ``lanes_launched`` (active lanes and stage width, summed over waves),
-   ``ids_launched`` (stage width x M0, the ids handed to ``score_block``)
-   and ``ids_useful`` (of those, the valid ids not yet visited: a device
-   scalar, read when the trace finishes).  Without one the loop tests a
-   local for None twice a wave and runs no other op.
+   that span's attributes (``obs.trace.trace_add`` and ``host_wait``),
+   summed over traversals: ``waves``, ``sync_ms`` (the time blocked in
+   each wave's sync, each inside a ``favor/graph/sync`` range under
+   annotations), ``lanes_active`` / ``lanes_launched`` (active lanes and
+   stage width, summed over waves), ``ids_launched`` (stage width x M0,
+   the ids handed to ``score_block``) and ``ids_useful`` (of those, the
+   valid ids not yet visited: a device scalar, read when the trace
+   finishes).  Without one the loop tests a local once a wave and runs no
+   other op.
 
 ``favor_graph_search`` (exclusion distances) and ``rsf_graph_search``
 (result-set-filtering baseline: D = 0, R admits TD only) are two thin entry
@@ -52,7 +53,6 @@ points over ONE traversal body.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,7 +61,8 @@ import torch
 from . import filters as F
 from .hnsw import HnswIndex
 from .scoring import scorer_for
-from ..obs.trace import open_span
+from ..kernels._common import stable_topk
+from ..obs.trace import host_wait, open_span, trace_add
 
 INF = float("inf")
 
@@ -214,17 +215,6 @@ def _gate_alive(key, td, alive, D):
     return torch.where(dead, key + D, key), td & ~dead
 
 
-def _merge_pool(pool_d, pool_i, pool_t, new_d, new_i, new_t, cap: int):
-    """Merge (B, cap) pools with (B, M) new entries, keep best ``cap``
-    (stable: pool entries and lower columns win ties).  Ineligible new
-    entries must carry d=+inf."""
-    d = torch.cat([pool_d, new_d], dim=1)
-    i = torch.cat([pool_i, new_i], dim=1)
-    t = torch.cat([pool_t, new_t], dim=1)
-    order = torch.sort(d, dim=1, stable=True).indices[:, :cap]
-    return d.gather(1, order), i.gather(1, order), t.gather(1, order)
-
-
 def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
                     D: torch.Tensor, cfg: SearchConfig, scorer, valid,
                     *, rsf: bool) -> dict:
@@ -245,9 +235,8 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
     # so a static index runs exactly the ops it ran before
     alive = g.get("alive")
 
-    traced = open_span()                             # (trace, span) or None
-    count = (None if traced is None else
-             dict(sync_ms=0.0, lanes_active=0, lanes_launched=0, ids_useful=0))
+    traced = open_span() is not None                 # a sampled trace's span
+    m0 = g["neighbors0"].shape[1]
     sstate = scorer.prepare(g, queries, programs)
     ep = _descend(g, queries, scorer, sstate)        # (B,)
 
@@ -283,13 +272,8 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
         width = s["active"].shape[0]
         lanes = torch.arange(width, device=dev)
         while s["step"] < cfg.steps:
-            if count is None:
+            with host_wait("sync_ms", "favor/graph/sync"):
                 n_active = int(s["active"].sum())     # one host sync a wave
-            else:
-                t = time.perf_counter()
-                with traced[0].range("favor/graph/sync"):
-                    n_active = int(s["active"].sum())
-                count["sync_ms"] += (time.perf_counter() - t) * 1e3
             if n_active == 0 or (limit > 0 and n_active <= limit):
                 break
             cand_d, cand_i, cand_t = s["cand_d"], s["cand_i"], s["cand_t"]
@@ -301,7 +285,8 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
             da = cand_d[lanes, j]
             va = cand_i[lanes, j]
             va_td = cand_t[lanes, j]
-            cand_d = cand_d.clone()
+            # in place: cand_d is this traversal's own (the initial pool,
+            # the last wave's merge output or a compaction slice)
             cand_d[lanes, j] = torch.where(active, INF, da)
 
             # -- termination (line 8, with section 5.4 guard) ----------------
@@ -329,25 +314,26 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
             new = ok & ~_seen_bits(s["visited"], lanes, safe)
             visited = _visit_bits(s["visited"], lanes, safe, new)
 
-            if count is not None:
-                count["lanes_active"] += n_active
-                count["lanes_launched"] += width
-                count["ids_useful"] = count["ids_useful"] + new.sum()
+            if traced:
+                trace_add("lanes_active", n_active)
+                trace_add("lanes_launched", width)
+                trace_add("ids_launched", width * m0)
+                trace_add("ids_useful", new.sum())
             key, td = scorer.score_block(g, sstate, safe, D)  # Eq. 2
             if alive is not None:
                 key, td = _gate_alive(key, td, alive[safe], D[:, None])
 
             # -- pool insertion (lines 15-24) --------------------------------
-            worst_now = res_d.max(dim=1).values      # +inf when R not full
-            eligible = new & (key < worst_now[:, None])
+            eligible = new & (key < worst[:, None])  # R unchanged this wave
             res_ok = (eligible & td) if rsf else eligible
-            res_d, res_i, res_t = _merge_pool(
-                res_d, res_i, res_t,
-                torch.where(res_ok, key, INF), torch.where(res_ok, nbrs, -1),
-                td & res_ok, ef)
-            cand_d, cand_i, cand_t = _merge_pool(
-                cand_d, cand_i, cand_t, torch.where(eligible, key, INF),
-                torch.where(eligible, nbrs, -1), td & eligible, ccap)
+            # ineligible new entries carry d = +inf; pool entries win ties
+            res_d, res_i, res_t = stable_topk(
+                [res_d, torch.where(res_ok, key, INF)], ef,
+                [res_i, torch.where(res_ok, nbrs, -1)], [res_t, td & res_ok])
+            cand_d, cand_i, cand_t = stable_topk(
+                [cand_d, torch.where(eligible, key, INF)], ccap,
+                [cand_i, torch.where(eligible, nbrs, -1)],
+                [cand_t, td & eligible])
 
             s = {
                 "cand_d": cand_d, "cand_i": cand_i, "cand_t": cand_t,
@@ -395,28 +381,20 @@ def _graph_traverse(g: dict, queries: torch.Tensor, programs: dict,
             D_s = D_s[sel]
             sstate_s = _take_lanes(sstate_s, sel, scorer.shared_state)
     waves = state["step"]
-    if count is not None:
-        count.update(waves=waves, ids_launched=count["lanes_launched"]
-                     * g["neighbors0"].shape[1])
-        attrs = traced[1].attrs
-        for key, v in count.items():
-            attrs[key] = attrs.get(key, 0) + v
+    trace_add("waves", waves)
 
     # --- final S: k nearest TD in R (Algorithm 2 line 9) --------------------
     sd = torch.where(final["res_t"], final["res_d"], INF)  # TD: dbar == d
     if scorer.exact:
-        order = torch.sort(sd, dim=1, stable=True).indices[:, :cfg.k]
-        out_d = sd.gather(1, order)
-        out_i = final["res_i"].gather(1, order)
+        out_d, out_i = stable_topk(sd, cfg.k, final["res_i"])
     else:
         # quantized scorer: the pool holds approximate distances -- exact
         # f32 re-rank of the top-R TD candidates, as the brute route's
         # compressed scan does; R caps at ef (the pool size)
         from ..quant.adc import _exact_rerank
         r = min(ef, max(cfg.k, cfg.graph_rerank * cfg.k))
-        order = torch.sort(sd, dim=1, stable=True).indices[:, :r]
-        cand = torch.where(torch.isfinite(sd.gather(1, order)),
-                           final["res_i"].gather(1, order), -1)
+        top_d, top_i = stable_topk(sd, r, final["res_i"])
+        cand = torch.where(torch.isfinite(top_d), top_i, -1)
         out_i, out_d = _exact_rerank(g["vectors"], g["norms"], queries, cand,
                                      k=cfg.k)
     if valid is not None:

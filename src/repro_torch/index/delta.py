@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core import prefbf
+from ..kernels._common import stable_topk
 
 _MIN_CAPACITY = 64
 
@@ -48,13 +49,9 @@ def compose_topk_dev(base_ids, base_d, extra_ids, extra_d, k: int):
     """Device-side ``compose_topk`` on tensors: the same stable sort-merge
     (base entries first, so base rows win exact ties) without a host sync.
     Returns (ids (B, k) int64, dists (B, k) f32)."""
-    ids = torch.cat([base_ids.to(torch.int64), extra_ids.to(torch.int64)],
-                    dim=1)
-    d = torch.cat([base_d.to(torch.float32), extra_d.to(torch.float32)],
-                  dim=1)
-    order = torch.sort(d, dim=1, stable=True).indices[:, :k]
-    out_d = d.gather(1, order)
-    out_i = ids.gather(1, order)
+    out_d, out_i = stable_topk(
+        [base_d.to(torch.float32), extra_d.to(torch.float32)], k,
+        [base_ids.to(torch.int64), extra_ids.to(torch.int64)])
     return torch.where(torch.isfinite(out_d), out_i, -1), out_d
 
 

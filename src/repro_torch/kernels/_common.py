@@ -164,6 +164,28 @@ def chain_topk(scan, k: int, kmax: int, after=None):
     return out_i, out_d
 
 
+def stable_topk(keys, k: int, *cols):
+    """The ``k`` smallest ``keys`` of each row, ascending, and every
+    companion column (ids, TD bits, ...) gathered in the same order.
+
+    ``keys`` is a (B, n) tensor, or a list of (B, n_j) blocks that are
+    concatenated along dim 1 in the order given; each of ``cols`` is then
+    a list of blocks shaped like the keys' (a single block is used as it
+    is: no concatenation, no copy).  Tie rule, the one every top-k of the
+    port follows: an earlier input wins an exact tie, and within an input
+    the lower column wins -- so a merge that passes its carried entries
+    first keeps them.  ``torch.topk`` makes no such promise; a stable sort
+    does, as the reference's ``jnp.argsort`` and ``lax.top_k`` do.
+    Returns (keys (B, k), *cols (B, k)), fewer than ``k`` columns where
+    the inputs hold fewer.
+    """
+    if isinstance(keys, (list, tuple)):
+        keys = torch.cat(keys, dim=1)
+        cols = [torch.cat(c, dim=1) for c in cols]
+    order = torch.sort(keys, dim=1, stable=True).indices[:, :k]
+    return (keys.gather(1, order), *(c.gather(1, order) for c in cols))
+
+
 ROW_BLOCK = 8   # queries per GEMM in ``rows_mm``
 
 

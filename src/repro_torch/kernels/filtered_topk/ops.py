@@ -213,9 +213,5 @@ def filtered_topk_plain(vectors, norms, ints, floats, queries, programs, *,
         ids = torch.arange(s, s + v.shape[0], dtype=torch.int32,
                            device=dev).expand(b, -1)
         dist = torch.where(C.after_mask(dist, ids, after), dist, C.BIG)
-        md = torch.cat([best_d, dist], dim=1)
-        mi = torch.cat([best_i, ids], dim=1)
-        order = torch.sort(md, dim=1, stable=True).indices[:, :k]
-        best_d = torch.gather(md, 1, order)
-        best_i = torch.gather(mi, 1, order)
+        best_d, best_i = C.stable_topk([best_d, dist], k, [best_i, ids])
     return C.apply_missing(best_i, best_d, valid)

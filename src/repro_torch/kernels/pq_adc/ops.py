@@ -232,11 +232,7 @@ def pq_adc_topr_plain(codes, norms, ints, floats, luts, programs, *,
         ids = torch.arange(s, s + cc.shape[0], dtype=torch.int32,
                            device=dev).expand(b, -1)
         dist = torch.where(C.after_mask(dist, ids, after), dist, C.BIG)
-        md = torch.cat([best_d, dist], dim=1)
-        mid = torch.cat([best_i, ids], dim=1)
-        order = torch.sort(md, dim=1, stable=True).indices[:, :r]
-        best_d = torch.gather(md, 1, order)
-        best_i = torch.gather(mid, 1, order)
+        best_d, best_i = C.stable_topk([best_d, dist], r, [best_i, ids])
     return C.apply_missing(best_i, best_d, valid)
 
 

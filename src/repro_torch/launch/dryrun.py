@@ -148,17 +148,22 @@ def _caller() -> str:
 _PKG = f"repro_torch{os.sep}"
 
 # the parts of the favor-anns graph step a count gives bytes to: the
-# innermost function of this package on the stack that names one
+# innermost function of this package on the stack that names one; a
+# ``stable_topk`` is named by its caller (the wave's pool merges, the
+# shards' merge), elsewhere it counts as its caller's
 _PARTS = {"estimate": "estimate", "_descend": "descent",
           "_seen_bits": "visited", "_visit_bits": "visited",
-          "_merge_pool": "pools", "stage_loop": "wave",
-          "_graph_traverse": "traversal", "_merge_topk": "shard merge"}
+          "stage_loop": "wave", "_graph_traverse": "traversal"}
+_TOPK_PARTS = {"stage_loop": "pools", "_per_block": "shard merge"}
 
 
 def _part() -> str:
     f = sys._getframe(2)
     while f is not None:
-        part = _PARTS.get(f.f_code.co_name)
+        name = f.f_code.co_name
+        part = (_TOPK_PARTS.get(f.f_back.f_code.co_name)
+                if name == "stable_topk" and f.f_back is not None
+                else _PARTS.get(name))
         if part is not None and _PKG in f.f_code.co_filename:
             return part
         f = f.f_back

@@ -2,14 +2,13 @@
 
 ``annotate(name)`` returns a ``torch.profiler.record_function(name)``
 context while ``set_kernel_annotations(True)`` is in force, and a
-``nullcontext`` otherwise.  Wrapped around the backend's scans and
-traversal (``favor/local/*``, ``favor/sharded/*``), it brackets the host
-span that enqueues (and, for the graph route, waits on) the device work,
-so a ``torch.profiler`` capture attributes kernel time to routes.  The
-router's stages get their ranges from the trace's spans instead
-(``obs.trace``: ``favor/<span path>``).  The ``Obs`` facade flips the
-switch when ``ObsSpec.kernel_annotations`` is set; off, the hook costs one
-global read.
+``nullcontext`` otherwise (``Obs.annotate`` reaches it).  The serving
+path itself takes its ranges from the trace's spans (``obs.trace``:
+``favor/<span path>``, ``favor/graph/search`` around the traversal,
+``favor/brute/search`` around the scans), so a ``torch.profiler`` capture
+attributes kernel time to the router's stages.  The ``Obs`` facade flips
+the switch when ``ObsSpec.kernel_annotations`` is set; off, the hook costs
+one global read.
 
 The counterpart of the JAX package's ``jax.profiler.TraceAnnotation``
 scopes.  Its trace-time ``jax.named_scope`` metadata has no counterpart:

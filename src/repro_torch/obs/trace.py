@@ -27,11 +27,12 @@ adds:
    (a ``.cpu()`` read, an upload, a wave's sync) into a span or trace
    attribute with ``time.perf_counter`` -- never the injected clock, so
    fake-clock span trees keep their durations -- inside a range of its own;
- * ``open_span()`` hands code below the router (the graph traversal) the
-   innermost open span of a sampled trace through a context variable, so
-   it can add its counters without a new parameter; a device scalar left
-   as an attribute is read to a number when the trace finishes, after the
-   batch's outputs were copied;
+ * ``open_span()`` hands code below the router the innermost open span of
+   a sampled trace through a context variable, and ``trace_add`` adds a
+   counter to it without a new parameter -- the one way code below the
+   router reports, with ``host_wait`` and ``stage_span``; a device scalar
+   left as an attribute is read to a number when the trace finishes, after
+   the batch's outputs were copied;
  * ``stage_span()`` opens a child of that span for a stage below the
    router (the compressed scan's), timed with ``time.perf_counter`` like
    ``host_wait``, so fake-clock traces keep their readings;
@@ -69,6 +70,17 @@ def host_wait(key: str, name: str):
         return nullcontext()
     tr, sp = cur
     return tr.wait(key, name, sp.attrs)
+
+
+def trace_add(key: str, value) -> None:
+    """Add ``value`` -- a number, or a device scalar read to a number when
+    the trace finishes -- into attribute ``key`` of the innermost open span
+    of a sampled trace (summed over calls); a no-op without one."""
+    cur = _OPEN.get()
+    if cur is None:
+        return
+    attrs = cur[1].attrs
+    attrs[key] = attrs[key] + value if key in attrs else value
 
 
 def stage_span(name: str):

@@ -27,9 +27,9 @@ from __future__ import annotations
 import torch
 
 from ..core import filters as F
-from ..kernels._common import no_tf32, rows_mm
+from ..kernels._common import no_tf32, rows_mm, stable_topk
 from ..kernels.pq_adc import ops as pq_ops
-from ..obs.trace import open_span, stage_span
+from ..obs.trace import open_span, stage_span, trace_add
 
 INF = float("inf")
 
@@ -71,9 +71,7 @@ def _exact_rerank(vectors, norms, queries, cand_i, *, k: int, valid=None):
     dist = torch.sqrt(torch.clamp(norms[safe] + qn[:, None] - 2.0 * dot,
                                   min=0.0))
     dist = torch.where(cand_i >= 0, dist, INF)
-    order = torch.sort(dist, dim=1, stable=True).indices[:, :k]
-    out_d = dist.gather(1, order)
-    out_i = cand_i.gather(1, order)
+    out_d, out_i = stable_topk(dist, k, cand_i)
     if valid is not None:
         vmask = torch.as_tensor(valid, dtype=torch.bool,
                                 device=out_d.device)[:, None]
@@ -97,33 +95,25 @@ def pq_prefbf_topk(codes, norms, ints, floats, queries, programs, centroids,
     float32 dists (B, k) (+inf missing).
     """
     r = max(k, rerank * k)
-    traced = open_span()                             # (trace, span) or None
     with stage_span("luts"):
         luts = build_luts(centroids, queries)
     # the kernel's counters, on the card inside a trace (the plain scan
     # has no screen to count)
     screened = rescored = None
-    if traced is not None and luts.is_cuda:
+    if luts.is_cuda and open_span() is not None:
         screened, rescored = torch.zeros((2, luts.shape[0]),
                                          dtype=torch.int32, device=luts.device)
-    with stage_span("screen") as sp:
+    with stage_span("screen"):
         cand_i, _ = pq_ops.pq_adc_topr(codes, norms, ints, floats, luts,
                                        programs, r=r, valid=valid,
                                        chunk=chunk, screen_counts=screened,
                                        rescore_counts=rescored)
         if screened is not None:
-            sp.attrs["screen_pairs"] = screened.sum()
-            sp.attrs["rescored_pairs"] = rescored.sum()
+            trace_add("screen_pairs", screened.sum())
+            trace_add("rescored_pairs", rescored.sum())
     with stage_span("rerank"):
         return _exact_rerank(vectors, norms, queries, cand_i, k=k,
                              valid=valid)
-
-
-def _merge_topr(best_d, best_i, tile_d, tile_i, r: int):
-    d = torch.cat([best_d, tile_d], dim=1)
-    i = torch.cat([best_i, tile_i], dim=1)
-    order = torch.sort(d, dim=1, stable=True).indices[:, :r]
-    return d.gather(1, order), i.gather(1, order)
 
 
 def sq_prefbf_topk(codes, lo, scale, norms, ints, floats, queries, programs,
@@ -152,6 +142,6 @@ def sq_prefbf_topk(codes, lo, scale, norms, ints, floats, queries, programs,
         d2 = torch.where(ok, d2, INF)
         ids = torch.arange(s, s + deq.shape[0], dtype=torch.int32,
                            device=dev).expand(b, -1)
-        best_d, best_i = _merge_topr(best_d, best_i, d2, ids, r)
+        best_d, best_i = stable_topk([best_d, d2], r, [best_i, ids])
     cand_i = torch.where(torch.isfinite(best_d), best_i, -1)
     return _exact_rerank(vectors, norms, queries, cand_i, k=k, valid=valid)

@@ -12,6 +12,8 @@
   plain versions, ties and short tails included.
 * The lower bound: the plain versions with ``after`` return the entries of
   the Pallas kernels (interpret mode) that follow the bound.
+* The port's one stable top-k (``_common.stable_topk``): numpy's stable
+  argsort's order, ties, +inf tails and companion columns.
 """
 import math
 
@@ -210,3 +212,56 @@ def test_lower_bound_matches_pallas_after_it(mode):
     want_d = np.stack([rd[q, j[q] + 1:j[q] + 1 + kk] for q in range(b)])
     m = topk_mismatch(want_i, want_d, got_i.numpy(), got_d.numpy(), TOL, TOL)
     assert m["dist_mismatch"] == 0 and m["id_mismatch"] == 0, m
+
+
+def _topk_blocks(case: str):
+    """(key blocks (B, n_j) f32, k) of one ``stable_topk`` case."""
+    rng = np.random.default_rng(11)
+    b = 6
+    if case == "ties_across":
+        # every key of the second block ties one of the first
+        base = rng.integers(0, 4, size=(b, 8)).astype(np.float32)
+        return [np.sort(base, axis=1), base[:, ::-1].copy()], 10
+    if case == "ties_within":
+        return [rng.integers(0, 3, size=(b, 40)).astype(np.float32)], 12
+    if case == "inf_tail":
+        # fewer finite keys than k; the second block ties the first's
+        # front and carries +inf behind it
+        a = rng.normal(size=(b, 16)).astype(np.float32)
+        a[:, 5:] = np.inf
+        c = np.full((b, 8), np.inf, np.float32)
+        c[:, 0] = a[:, 0]
+        return [a, c], 20
+    # short: fewer entries in all than k
+    return [rng.normal(size=(b, 3)).astype(np.float32),
+            rng.normal(size=(b, 2)).astype(np.float32)], 8
+
+
+@pytest.mark.parametrize("case", ["ties_across", "ties_within", "inf_tail",
+                                  "short"])
+def test_stable_topk_matches_numpy_stable_argsort(case):
+    """``_common.stable_topk`` against numpy's ``argsort(kind="stable")``
+    over the concatenated blocks: an earlier block wins an exact tie, the
+    lower column within a block, +inf keys sort last, and bool, int32 and
+    int64 companion columns follow the keys (the int columns hold each
+    entry's position, so the whole order is checked)."""
+    blocks, k = _topk_blocks(case)
+    keys = np.concatenate(blocks, axis=1)
+    b, n = keys.shape
+    pos = np.broadcast_to(np.arange(n), (b, n))
+    cols = [pos.astype(np.int64), pos.astype(np.int32),
+            np.random.default_rng(3).random((b, n)) < 0.5]
+    order = np.argsort(keys, axis=1, kind="stable")[:, :k]
+    want = [np.take_along_axis(a, order, axis=1) for a in [keys] + cols]
+    cuts = np.cumsum([x.shape[1] for x in blocks])[:-1]
+
+    def split(a):
+        parts = [torch.as_tensor(np.ascontiguousarray(p))
+                 for p in np.split(a, cuts, axis=1)]
+        return parts if len(parts) > 1 else parts[0]
+    got = C.stable_topk(split(keys), k, *(split(c) for c in cols))
+    assert len(got) == 4
+    for g, w, a in zip(got, want, [keys] + cols):
+        assert g.dtype == torch.as_tensor(a).dtype
+        assert g.shape == (b, min(k, n))
+        np.testing.assert_array_equal(g.numpy(), w)

@@ -28,9 +28,10 @@ WAVE_KEYS = ("waves", "sync_ms", "lanes_active", "lanes_launched",
 # attributes read with the host's clock: they differ between two runs
 TIMED = ("upload_ms", "read_ms", "finish_wait_ms", "sync_ms")
 # torch ops an untraced traversal of ``_setup``'s batch issues, counted by
-# ``_ops`` under a dispatch mode with lane_compact=0: the counts the
-# traversal issued before it had counters (3 and 9 waves: 169 a wave)
-UNTRACED_OPS = {3: 1172, 9: 2186}
+# ``_ops`` under a dispatch mode with lane_compact=0 (3 and 9 waves: 167 a
+# wave, two fewer than before the wave's repeated max and copy of the
+# candidate keys went; the traversal issued 169 before it had counters)
+UNTRACED_OPS = {3: 1166, 9: 2168}
 
 
 class FakeClock:
@@ -175,9 +176,10 @@ def test_traced_and_untraced_answers_are_bit_identical(setup):
 
 
 def test_untraced_wave_issues_the_ops_it_issued_before(setup):
-    """Without a sampled trace the loop issues exactly the torch ops it
-    issued before it had counters; a traced traversal adds two a wave (the
-    useful-id count's sum and add) and one at its end."""
+    """Without a sampled trace the loop issues exactly the torch ops of its
+    wave body, no counter's; a traced traversal adds two a wave (the
+    useful-id count's sum and its add into the span), less the first
+    wave's add."""
     fi, q, flts = setup
     counts = {}
     for steps in UNTRACED_OPS:
@@ -186,7 +188,7 @@ def test_untraced_wave_issues_the_ops_it_issued_before(setup):
         assert waves == steps
         counts[steps] = n
         n_tr, _ = _ops(fi, q, flts, cfg, traced=True)
-        assert n_tr == n + 2 * waves + 1
+        assert n_tr == n + 2 * waves - 1
     assert counts == UNTRACED_OPS
 
 
@@ -262,6 +264,10 @@ def test_spans_are_profiler_ranges(setup, tmp_path):
     waves = next(c for s in tr.spans if s.name == "graph"
                  for c in s.children if c.name == "search").attrs["waves"]
     assert len(by_name["favor/graph/sync"]) >= waves
+    # the spans are the serving path's only host ranges: the backend opens
+    # none of its own around the traversal or the scans
+    assert not [e for e in ranges if e["name"].startswith(
+        ("favor/local/", "favor/sharded/"))]
 
 
 # -- the compressed brute route's stages ---------------------------------------
