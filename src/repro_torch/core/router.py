@@ -60,13 +60,14 @@ class PendingExecution:
     left in flight is the device work the backend queued without waiting
     for it (the brute scans, and the graph route's last copies -- the
     traversal waits on the device once per wave, so it has finished).
-    ``finish()`` copies the outputs to the host (``.cpu()``, which waits
-    for the queued work), reassembles the batch, and fires the backend's
-    ``record_result`` hook plus the obs trace.  Passing ``hook_lock`` runs
-    only those *mutating* host hooks under the lock -- the device wait
-    never holds it.  ``finish()`` is idempotent and may be called from any
-    thread: the first call materializes the SearchResult, later (or
-    concurrent) calls return the same object.
+    Dispatch ended by queuing the copies of the outputs to the host behind
+    that work (``copy_down``), so ``finish()`` waits for this batch alone,
+    not for a batch dispatched after it; it then reassembles the batch and
+    fires the backend's ``record_result`` hook plus the obs trace.
+    Passing ``hook_lock`` runs only those *mutating* host hooks under the
+    lock -- the device wait never holds it.  ``finish()`` is idempotent
+    and may be called from any thread: the first call materializes the
+    SearchResult, later (or concurrent) calls return the same object.
     """
     backend: object
     opts: SearchOptions
@@ -93,6 +94,8 @@ class PendingExecution:
     brute_out: tuple | None = None
     graph_diag: bool = True
     waves_diag: bool = True
+    # one per card the outputs are on, recorded behind their copies
+    events: list = field(default_factory=list)
     _result: SearchResult | None = None
     _once: threading.Lock = field(default_factory=threading.Lock)
 
@@ -104,13 +107,46 @@ class PendingExecution:
                 self._result = self._finish(hook_lock)
         return self._result
 
+    def copy_down(self) -> None:
+        """Queue, behind the batch's device work, the copies to the host
+        that ``_finish`` reads: the outputs, the queries a
+        ``record_result`` hook takes and, in a sampled trace, the device
+        scalars of its spans; then record an event per card behind them.
+        Pinned buffers and non-blocking copies on a card; elsewhere the
+        values stay as they are (a CPU tensor's ``.cpu()`` is itself)."""
+        cards = set()
+
+        def down(t):
+            if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+                return t
+            cards.add(t.device)
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t, non_blocking=True)
+
+        if self.graph_out is not None:
+            self.graph_out = {k: down(v) for k, v in self.graph_out.items()}
+        if self.brute_out is not None:
+            self.brute_out = tuple(down(v) for v in self.brute_out)
+        if getattr(self.backend, "record_result", None) is not None:
+            self.mq = down(self.mq)
+        if self.tr is not None:
+            self.tr.map_scalars(down)
+        for card in sorted(cards, key=str):
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(card))
+            self.events.append(ev)
+
     def _finish(self, hook_lock) -> SearchResult:
         ids, dists, miss = self.ids, self.dists, self.miss
         gi, bi = self.gi, self.bi
-        # the .cpu() copies wait for the in-flight device work: the trace's
-        # ``finish_wait_ms``
+        # whether the copies had landed before the finish asked
+        ready = (all(ev.query() for ev in self.events)
+                 if self.tr is not None else None)
+        # the wait for this batch's copies: the trace's ``finish_wait_ms``
         with (self.tr.wait("finish_wait_ms", "favor/finish/wait")
               if self.tr is not None else nullcontext()):
+            for ev in self.events:
+                ev.synchronize()
             graph = ({k: _host(v) for k, v in self.graph_out.items()}
                      if self.graph_out is not None else None)
             brute = (tuple(_host(v) for v in self.brute_out)
@@ -140,6 +176,7 @@ class PendingExecution:
                            ids[miss], dists[miss], self.mp_hat,
                            self.plan.brute)
             if self.tr is not None:
+                self.tr.attrs["finish_ready"] = int(ready)
                 self.tr.attrs["cache_hits"] = int(self.b - len(miss))
                 self.tr.attrs["graph"] = int(
                     self.b - int(self.routed_brute.sum()))
@@ -192,8 +229,18 @@ def compile_programs(filters, schema: F.Schema, batch: int,
                                 width)
     stacked["imask"] = stacked["imask"].astype(np.int64)
     with host_wait("upload_ms", "favor/compile/upload"):
-        return {k: torch.as_tensor(v, device=device)
-                for k, v in stacked.items()}
+        return {k: _upload(v, device) for k, v in stacked.items()}
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` on ``device``.  To a card it goes through pinned memory as a
+    non-blocking copy, so the host does not wait for the work queued there
+    (a pageable copy waits for the whole stream); elsewhere
+    ``torch.as_tensor``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.as_tensor(a, device=device)
+    return torch.as_tensor(a).pin_memory().to(device, non_blocking=True)
 
 
 def plan_routes(p_hat: np.ndarray, lam: float,
@@ -261,19 +308,18 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
     disabled, or sampled out.
 
     ``defer=True`` returns a ``PendingExecution`` after the host phase: the
-    backend searches are dispatched but their outputs are not copied to
-    the host, and no mutating hook has fired.  The caller finishes the
-    step -- possibly from another thread, possibly after dispatching more
-    steps -- with ``pending.finish()``, which yields the identical
-    SearchResult the synchronous path returns.
+    backend searches are dispatched and the copies of their outputs to the
+    host queued behind them, but not waited for, and no mutating hook has
+    fired.  The caller finishes the step -- possibly from another thread,
+    possibly after dispatching more steps -- with ``pending.finish()``,
+    which yields the identical SearchResult the synchronous path returns.
     """
     backend.validate(opts)
     dev = backend.device
     if isinstance(queries, torch.Tensor):
         queries = queries.to(device=dev, dtype=torch.float32).contiguous()
     else:
-        queries = torch.as_tensor(np.ascontiguousarray(queries, np.float32),
-                                  device=dev)
+        queries = _upload(np.ascontiguousarray(queries, np.float32), dev)
     b = queries.shape[0]
 
     tr = obs.start_trace(b) if obs is not None else None
@@ -291,7 +337,7 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
             raise ValueError(f"scopes must be shaped ({b},), "
                              f"got {scopes.shape}")
         if scopes.any():   # all-zero means unscoped: skip the sidecar
-            programs["scope"] = torch.as_tensor(scopes, device=dev)
+            programs["scope"] = _upload(scopes, dev)
     spec = opts.batch
 
     t0 = time.perf_counter()
@@ -392,4 +438,5 @@ def execute(backend, queries, filters, opts: SearchOptions, *,
                     pend.brute_out = backend.search_brute(bq, bprogs, opts,
                                                           valid=bvalid)
 
+    pend.copy_down()
     return pend if defer else pend.finish()

@@ -34,11 +34,13 @@ def estimate_batched(programs, sample_ints, sample_floats) -> torch.Tensor:
 
     The count of 0/1 values is exact below 2**24 rows; it is scaled by the
     float32 reciprocal of the sample size, the form XLA gives ``jnp.mean``,
-    so p_hat is the JAX package's float32 bit for bit."""
+    so p_hat is the JAX package's float32 bit for bit.  The reciprocal is
+    filled on the device (a copy up of a host scalar would wait for the
+    work queued on the card)."""
     mask = F.eval_program_batched(programs, sample_ints, sample_floats)
     count = mask.sum(dim=1, dtype=torch.float32)
-    return count * torch.tensor(1.0 / max(mask.shape[1], 1),
-                                dtype=torch.float32, device=count.device)
+    return count * torch.full((), 1.0 / max(mask.shape[1], 1),
+                              dtype=torch.float32, device=count.device)
 
 
 def route(p_hat, lam: float) -> np.ndarray:

@@ -31,8 +31,8 @@ adds:
    a sampled trace through a context variable, and ``trace_add`` adds a
    counter to it without a new parameter -- the one way code below the
    router reports, with ``host_wait`` and ``stage_span``; a device scalar
-   left as an attribute is read to a number when the trace finishes, after
-   the batch's outputs were copied;
+   left as an attribute is copied down with the batch's outputs
+   (``map_scalars``) and read to a number when the trace finishes;
  * ``stage_span()`` opens a child of that span for a stage below the
    router (the compressed scan's), timed with ``time.perf_counter`` like
    ``host_wait``, so fake-clock traces keep their readings;
@@ -176,7 +176,13 @@ class RequestTrace:
     def finish(self) -> None:
         if self.t1 is None:
             self.t1 = self._time()
-            _read_scalars(self.spans)
+            self.map_scalars(lambda v: v.item())
+
+    def map_scalars(self, fn) -> None:
+        """Replace each device scalar left as a span attribute by
+        ``fn(scalar)``: the router hands in a copy to the host queued with
+        the batch's outputs, so ``finish`` reads it without waiting."""
+        _map_tensors(self.spans, fn)
 
     @property
     def duration_s(self) -> float:
@@ -195,14 +201,15 @@ class RequestTrace:
                 "spans": [s.to_dict() for s in self.spans]}
 
 
-def _read_scalars(spans) -> None:
-    """Device scalars left as span attributes -> host numbers."""
+def _map_tensors(spans, fn) -> None:
+    """Each tensor left as an attribute of ``spans`` or their children ->
+    ``fn(tensor)``."""
     from torch import Tensor
     for sp in spans:
         for k, v in sp.attrs.items():
             if isinstance(v, Tensor):
-                sp.attrs[k] = v.item()
-        _read_scalars(sp.children)
+                sp.attrs[k] = fn(v)
+        _map_tensors(sp.children, fn)
 
 
 @dataclass

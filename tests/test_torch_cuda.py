@@ -1022,6 +1022,103 @@ def test_deferred_finish_from_other_thread_on_card(dev):
         assert np.array_equal(g.routed_brute, s.routed_brute)
 
 
+# span attributes read on the host's clock, and whether a finish found its
+# copies landed: they differ between a synchronous and a deferred run
+_TIMED_ATTRS = ("upload_ms", "read_ms", "finish_wait_ms", "sync_ms",
+                "finish_ready")
+# ``pq_screen``'s counters depend on the order in which a block's candidate
+# buffer fills when a tile overflows it (dense filters: which pairs enter
+# before the flush that tightens the threshold), so two runs of one batch
+# can count differently there; the answers never differ
+_PQ_SCREEN_ATTRS = ("screen_pairs", "rescored_pairs")
+
+
+def _counters(spans, path="", drop=()):
+    """(span path, untimed attributes) of every span, in order."""
+    out = []
+    for sp in spans:
+        name = f"{path}/{sp.name}"
+        out.append((name, {k: v for k, v in sp.attrs.items()
+                           if k not in _TIMED_ATTRS + drop}))
+        out += _counters(sp.children, name, drop)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["f32_brute", "pq_brute", "mixed",
+                                   "pq_brute_dense"])
+def test_deferred_finish_waits_for_its_own_batch_on_card(dev, route):
+    """Batches A and B dispatched with ``defer=True``, then a long sleep
+    queued on the current stream: A's finish, and B's, return while the
+    stream is still busy (each waits for its own copies, not for the work
+    queued after them), A's trace reads ``finish_ready`` 1, and the
+    answers and every span counter (the scans' device scalars, the wave
+    counters) equal the synchronous path's, bit for bit.  The compressed
+    route runs under 0.3-1 % filters (cell 3's kind) and, as
+    ``pq_brute_dense``, under the mixed pool, where its screen counters
+    are held to their bounds instead (``_PQ_SCREEN_ATTRS``)."""
+    from repro_torch.core import ObsSpec, SearchOptions, router
+    from repro_torch.obs import Obs
+    pq_route = route.startswith("pq")
+    fi, attrs, qs, flts = _card_index(seed=41, quant=pq_route)
+    if route == "pq_brute":
+        flts = [PF.And(PF.Equality("i0", i % 10),
+                       PF.Range("f0", 10.0 + i, 12.0 + i + i % 4))
+                for i in range(len(qs))]
+    opts = (SearchOptions(k=10, use_pq=True, force="brute") if pq_route
+            else {"f32_brute": SearchOptions(k=10, force="brute"),
+                  "mixed": SearchOptions(k=10, ef=64)}[route])
+    halves = [(qs[:24], flts[:24]), (qs[24:], flts[24:])]
+    plain = [fi.query(q, f, opts) for q, f in halves]
+    runs = {}
+    for defer in (False, True):
+        obs = [Obs(ObsSpec(slow_ms=None)) for _ in halves]
+        torch.cuda.synchronize()
+        if defer:
+            pend = [router.execute(fi.backend, q, f, opts, obs=o, defer=True)
+                    for (q, f), o in zip(halves, obs)]
+            torch.cuda._sleep(2_000_000_000)        # ~1 s of one SM
+            got = [p.finish() for p in pend]
+            busy = not torch.cuda.current_stream().query()
+            torch.cuda.synchronize()
+            assert busy, "a finish waited for work queued after its batch"
+        else:
+            got = [router.execute(fi.backend, q, f, opts, obs=o)
+                   for (q, f), o in zip(halves, obs)]
+        runs[defer] = (got, [o.tracer.traces[-1] for o in obs])
+    (sync, sync_tr), (deferred, deferred_tr) = runs[False], runs[True]
+    assert deferred_tr[0].attrs["finish_ready"] == 1
+    for g, s, p in zip(deferred, sync, plain):
+        for other in (s, p):
+            assert _same_bits(g.ids, g.dists, other.ids, other.dists)
+            assert np.array_equal(g.routed_brute, other.routed_brute)
+            assert np.array_equal(g.p_hat, other.p_hat)
+    if route == "mixed":
+        assert {True, False} <= set(deferred[0].routed_brute.tolist())
+    drop = _PQ_SCREEN_ATTRS if route == "pq_brute_dense" else ()
+    for d, s in zip(deferred_tr, sync_tr):
+        assert _counters(d.spans, drop=drop) == _counters(s.spans, drop=drop)
+        assert ({k: v for k, v in d.attrs.items() if k not in _TIMED_ATTRS}
+                == {k: v for k, v in s.attrs.items()
+                    if k not in _TIMED_ATTRS})
+    counters = {k for _, a in _counters(deferred_tr[0].spans) for k in a}
+    want = {"f32_brute": {"prefiltered_queries"},
+            "pq_brute": set(_PQ_SCREEN_ATTRS),
+            "pq_brute_dense": set(_PQ_SCREEN_ATTRS),
+            "mixed": {"prefiltered_queries", "waves", "ids_useful"}}[route]
+    assert want <= counters, counters
+    if route == "pq_brute_dense":
+        for (q, f), g, tr in zip(halves, deferred, deferred_tr):
+            (screen,) = [a for name, a in _counters(tr.spans)
+                         if name == "/brute/search/screen"]
+            passing = int(PF.eval_program_batched(
+                fi.compile_filters(f), torch.as_tensor(attrs.ints, device=dev),
+                torch.as_tensor(attrs.floats, device=dev)).sum())
+            answered = int((g.ids >= 0).sum())
+            assert (0 < answered <= screen["rescored_pairs"]
+                    <= min(screen["screen_pairs"], passing)), screen
+
+
 @pytest.mark.cuda
 def test_background_merge_on_card_equals_foreground(dev):
     """A background merge (worker thread, gather_distance waves on the

@@ -72,10 +72,12 @@ class FakeClock:
 
 
 # Attributes only the port's trace carries (``repro_torch.obs.trace``):
-# where the host waits on the card, and the graph traversal's wave
-# counters.  They are taken out of the port's trace before it is compared
-# with the JAX package's, and held present by ``_assert_port_only``.
-PORT_ONLY = {"trace": ("finish_wait_ms",), "compile": ("upload_ms",),
+# where the host waits on the card, whether the finish found its copies
+# landed, and the graph traversal's wave counters.  They are taken out of
+# the port's trace before it is compared with the JAX package's, and held
+# present by ``_assert_port_only``.
+PORT_ONLY = {"trace": ("finish_wait_ms", "finish_ready"),
+             "compile": ("upload_ms",),
              "estimate": ("read_ms",),
              "graph/search": ("waves", "sync_ms", "lanes_active",
                               "lanes_launched", "ids_launched",
@@ -112,6 +114,7 @@ def _assert_port_only(traces: list) -> None:
             walk(sp["children"], name)
     for t in traces:
         assert t["attrs"]["finish_wait_ms"] >= 0
+        assert t["attrs"]["finish_ready"] == 1   # nothing in flight on CPU
         walk(t["spans"], "")
     assert "graph/search" in seen and "compile" in seen
 

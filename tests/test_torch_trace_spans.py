@@ -381,3 +381,50 @@ def test_prefbf_on_cpu_adds_no_span_attribute(setup):
     (brute,) = [s for s in obs.tracer.traces[-1].spans if s.name == "brute"]
     (search_sp,) = [c for c in brute.children if c.name == "search"]
     assert "prefiltered_queries" not in search_sp.attrs
+
+
+# -- the deferred finish ---------------------------------------------------------
+def _untimed_tree(d: dict) -> dict:
+    """``_untimed`` without the span and trace durations either."""
+    out = {k: v for k, v in _untimed(d).items() if k != "duration_ms"}
+    key = "spans" if "spans" in d else "children"
+    out[key] = [_untimed_tree(c) for c in d[key]]
+    return out
+
+
+@pytest.mark.parametrize("route", ["mixed", "pq_brute"])
+def test_deferred_trace_carries_finish_ready(setup, pq_setup, route):
+    """A traced batch dispatched with ``defer=True``, finished after a
+    second batch's dispatch, carries ``finish_ready`` (1 on the CPU, where
+    nothing is left in flight) and the synchronous path's answers bit for
+    bit and its trace: the same spans and untimed attributes."""
+    if route == "mixed":
+        fi, q, flts = setup
+        flts = flts[:-1] + [F.And(F.Equality("i0", 3),
+                                  F.Range("f0", 10, 12))]
+        opts = SearchOptions(k=5, ef=32)
+    else:
+        fi, q, flts = pq_setup
+        opts = SearchOptions(k=5, use_pq=True, force="brute")
+    runs = []
+    for defer in (False, True):
+        obs = Obs(ObsSpec(slow_ms=None), time_fn=FakeClock())
+        if defer:
+            pend = router.execute(fi.backend, q, flts, opts, obs=obs,
+                                  defer=True)
+            later = router.execute(fi.backend, q.flip(0), flts[::-1], opts,
+                                   defer=True)
+            res = pend.finish()
+            later.finish()
+        else:
+            res = router.execute(fi.backend, q, flts, opts, obs=obs)
+        (tr,) = obs.tracer.traces
+        runs.append((res, tr.to_dict()))
+    (sync, sync_tr), (deferred, deferred_tr) = runs
+    np.testing.assert_array_equal(deferred.ids, sync.ids)
+    assert np.array_equal(deferred.dists.view(np.uint32),
+                          sync.dists.view(np.uint32))
+    assert deferred_tr["attrs"]["finish_ready"] == 1
+    assert _untimed_tree(deferred_tr) == _untimed_tree(sync_tr)
+    if route == "mixed":
+        assert {"graph", "brute"} <= {s["name"] for s in deferred_tr["spans"]}
